@@ -12,6 +12,11 @@ if SRC not in sys.path:
     sys.path.insert(0, SRC)
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips inside the test without one")
+
+
 @pytest.fixture
 def rng():
     """Deterministic per-test RNG.

@@ -1,0 +1,116 @@
+"""What the port must never do: import JAX or the JAX package, or serve
+from the CPU when the card it was asked for is absent."""
+import pkgutil
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import repro_torch
+from repro_torch.core import COAXIndex, GridFile, full_rect
+from repro_torch.data import make_airline
+from repro_torch.engine import CoaxDevicePlan, DevicePlan
+from repro_torch.kernels import fused_scan
+
+SRC = str(Path(__file__).resolve().parents[1] / "src")
+
+
+def _modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        repro_torch.__path__, prefix="repro_torch."))
+
+
+def test_every_module_imports_without_jax_or_repro():
+    mods = _modules()
+    assert "repro_torch.engine.device" in mods
+    assert "repro_torch.kernels.fused_scan" in mods
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        sys.path.insert(0, {SRC!r})
+        for m in {mods!r}:
+            importlib.import_module(m)
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+        from repro_torch.kernels import build
+        print(bad, len(build._LIBS))        # imports load no kernel
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[] 0", out.stdout
+
+
+def test_build_without_nvcc_raises_and_writes_nothing(monkeypatch, tmp_path):
+    from repro_torch.kernels import build
+    if build._target("fused_scan").exists():
+        pytest.skip("the kernel is already built here")
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.load("fused_scan")
+    assert not (tmp_path / "build").exists()
+
+
+def _no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+
+
+def test_default_device_raises_without_a_card():
+    _no_card()
+    ds = make_airline(3_000, seed=0)
+    idx = COAXIndex(ds.data)
+    assert idx.backend == "device" and idx.device == "cuda"
+    with pytest.raises(RuntimeError, match="no card"):
+        CoaxDevicePlan(idx)
+    rect = full_rect(ds.data.shape[1])[None]
+    with pytest.raises(RuntimeError, match="no card"):
+        idx.query_batch(rect)
+    gf = GridFile(ds.data, index_dims=[0, 1], cells_per_dim=3)
+    with pytest.raises(RuntimeError, match="no card"):
+        DevicePlan(gf)
+    with pytest.raises(RuntimeError, match="no card"):
+        gf.query_batch(full_rect(2)[None], rect)
+    # the host paths stay available
+    idx.backend = "numpy"
+    assert idx.query_batch(rect)[1].size == ds.data.shape[0]
+    assert idx.query(rect[0]).size == ds.data.shape[0]
+
+
+def test_wrapper_refuses_other_devices():
+    rows = torch.zeros((2, 512), device="meta")
+    flo = torch.zeros((2, 4), device="meta")
+    alive = torch.ones((1, 512), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        fused_scan(rows, flo, flo, alive, tile=256)
+
+
+def test_chip_smoke_rehearsal_and_no_card_exit():
+    """``chip_smoke.py --rehearse`` drives the main path on the CPU and
+    prints no result; without a card the plain run exits non-zero with no
+    result either."""
+    root = Path(SRC).parent
+    reh = subprocess.run([sys.executable, "chip_smoke.py", "--rehearse"],
+                         cwd=root, capture_output=True, text=True,
+                         timeout=300)
+    assert reh.returncode == 3, reh.stderr
+    assert "[main]" in reh.stdout and "[segments]" in reh.stdout
+    assert '"ok"' not in reh.stdout
+    if torch.cuda.is_available():
+        return
+    run = subprocess.run([sys.executable, "chip_smoke.py"], cwd=root,
+                         capture_output=True, text=True, timeout=120)
+    assert run.returncode != 0 and '"ok"' not in run.stdout
+
+
+def test_background_compaction_not_ported():
+    from repro_torch.core import CoaxConfig
+    with pytest.raises(NotImplementedError):
+        COAXIndex(np.zeros((10, 2), np.float32),
+                  CoaxConfig(background_compact=True), device="cpu")
