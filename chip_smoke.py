@@ -7,9 +7,14 @@ Phases, one line of output each:
   card      nvidia-smi's name and power limit, torch's device name and count;
   build     nvcc builds every kernel from ``src/repro_torch/kernels/csrc``
             (registers, shared memory and spills from ``-Xptxas -v``);
-  kernel    each kernel against its plain torch version on the card, on all
-            four fused_scan specialisations, small shapes and a hit_cap
-            overflow case — exact equality;
+  kernel    each kernel against its plain torch version on the card, exact
+            equality: fused_scan on all four specialisations, small shapes
+            and a hit_cap overflow case; range_scan_batch and range_scan on
+            ragged N, windows that cut tiles, subnormal and ±inf bounds;
+            grid_histogram at 16/64/128 buckets; margin_split on rows where
+            a fused and an unfused m*x + b round apart (disp bitwise); both
+            of the last two at n = 2^24 + 1, where the float32 row-id test
+            drops row 2^24;
   main      the serving path at real size: 20M airline rows, 512 knn range
             queries through QueryServer in 64-query waves, inserts and
             deletes between waves, a compaction, one more wave, then one
@@ -19,6 +24,14 @@ Phases, one line of output each:
   segments  the kernel against its plain version at the main path's own
             segment inputs (primary Bp=64 over its ~19M rows; outlier;
             delta) — the plain version in chunks of 4 queries;
+  ops       the entry points of ``repro_torch.kernels`` at the main path's
+            size, launch counts read around exactly one call of each:
+            range_scan_batch_query over the primary image with the timed
+            wave's 64 rects and their probe-box windows, range_scan_query
+            on the first, bucket_histogram (64 buckets) and split_by_margin
+            on the first FD group's predictor and dependent over all rows;
+            each kernel equal to its plain version, timed (CUDA events),
+            with its bound;
   times     per-launch kernel time (CUDA events), plain-version time, bound,
             server QPS and wave latency, device busy share.
 Then one JSON line of per-kernel numbers, the nvidia-smi line, and last
@@ -54,6 +67,14 @@ REHEARSE = dict(rows=200_000, queries=64, wave=16, knn=64, sample_cap=20_000,
                 inserts=200, deletes=50, waves=4, reps=1, chunk=4)
 PAPER_ROWS = 80_000_000       # the paper's airline table
 
+# the kernels behind the ops entries, and the TPU kernel body each replaces
+OPS_KERNELS = (
+    ("range_scan_batch", "src/repro/kernels/range_scan_batch.py:34"),
+    ("range_scan", "src/repro/kernels/range_scan.py:32"),
+    ("grid_histogram", "src/repro/kernels/grid_histogram.py:28"),
+    ("margin_split", "src/repro/kernels/margin_split.py:26"),
+)
+
 
 def say(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
@@ -84,8 +105,12 @@ def build_phase():
         for fn, body in re.findall(
                 r"Function properties for (\S+)\n(.*?)(?=ptxas info\s+: "
                 r"Compile time|\Z)", log, re.S):
-            m = re.search(r"(count_pass|scan_pass|write_pass)"
-                          r"(?:ILb(\d)ELb(\d)E)?", fn)
+            m = re.search(r"(count_pass|scan_pass|write_pass|"
+                          r"range_scan_batch_kernel|range_scan_kernel|"
+                          r"histogram_kernel|to_float_kernel|"
+                          r"margin_split_kernel)(?:ILb(\d)ELb(\d)E)?", fn)
+            if m is None:
+                continue
             label = m.group(1) + (f"<{m.group(2)},{m.group(3)}>"
                                   if m.group(2) else "")
             regs = re.search(r"Used (\d+) registers", body)
@@ -157,6 +182,158 @@ def kernel_phase(torch, dev):
     say("kernel", f"fused_scan == plain version on {cases} cases (4 "
         "specialisations x 2 shapes, one with hit_cap=8 overflowing): "
         "max_abs_err 0")
+    return ops_kernel_checks(torch, dev)
+
+
+def exact(got, want, what, bits=False):
+    """Hold a kernel's output against its plain version's: same type and
+    shape, and equal (float32 bit for bit where ``bits``).  Returns the
+    largest absolute difference, 0, and raises on any difference."""
+    import torch
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{what}: {got.dtype}{tuple(got.shape)} vs "
+                             f"plain {want.dtype}{tuple(want.shape)}")
+    same = (torch.equal(got.view(torch.int32), want.view(torch.int32))
+            if bits else torch.equal(got, want))
+    if not same:
+        diff = (got.double() - want.double()).abs().nan_to_num(float("inf"))
+        raise AssertionError(f"{what} differs from its plain version "
+                             f"(max abs err {float(diff.max())})")
+    return 0.0
+
+
+def scan_case(rng, n, b, d, tile):
+    """Rows, (B, D) rects and (B, 2) windows; query 0's window cuts its
+    first and last tile."""
+    rows = rng.normal(0, 10, (d, n)).astype(np.float32)
+    lo = rng.uniform(-15, 0, (b, d)).astype(np.float32)
+    hi = lo + rng.uniform(0, 25, (b, d)).astype(np.float32)
+    w_lo = rng.integers(0, n // 2, b)
+    wins = np.stack([w_lo, w_lo + rng.integers(1, n, b)], 1).astype(np.int32)
+    wins[0] = (tile // 3, n - tile // 5)
+    return rows, lo, hi, wins
+
+
+def check_scans(torch, dev, rows, lo, hi, wins, tile, singles=3):
+    """range_scan_batch on every query and range_scan on the first
+    ``singles``, each against its plain version on the same padded
+    inputs."""
+    from repro_torch.kernels import range_scan, range_scan_batch, ref
+    from repro_torch.kernels.ops import _pad_to
+    rows_p = _pad_to(torch.as_tensor(rows, device=dev), tile,
+                     float("inf")).contiguous()
+    lo_t = torch.as_tensor(lo.T.copy(), device=dev)
+    hi_t = torch.as_tensor(hi.T.copy(), device=dev)
+    w = torch.as_tensor(wins, device=dev)
+    got = range_scan_batch(rows_p, lo_t, hi_t, w, tile=tile)
+    want = ref.range_scan_batch_ref(rows_p, lo_t, hi_t, w, tile=tile)
+    err = max(exact(got[0], want[0], "range_scan_batch mask"),
+              exact(got[1], want[1], "range_scan_batch counts"))
+    for q in range(min(singles, lo.shape[0])):
+        args = (rows_p, lo_t[:, q].contiguous(), hi_t[:, q].contiguous(),
+                w[q].contiguous())
+        got = range_scan(*args, tile=tile)
+        want = ref.range_scan_ref(*args, tile=tile)
+        err = max(err, exact(got[0], want[0], "range_scan mask"),
+                  exact(got[1], want[1], "range_scan counts"))
+    return err
+
+
+def check_histogram(torch, dev, x, d, buckets):
+    from repro_torch.kernels import grid_histogram, ref
+    from repro_torch.kernels.ops import histogram_operands
+    ops = histogram_operands(x, d, buckets=buckets, device=dev)
+    got = grid_histogram(*ops, buckets=buckets)
+    err = exact(got, ref.grid_histogram_ref(*ops, buckets=buckets),
+                f"grid_histogram ({buckets} buckets, n={x.size})")
+    return err, int(got.double().sum())
+
+
+def check_split(torch, dev, x, d, m, b, eps_lb, eps_ub):
+    from repro_torch.kernels import margin_split, ref
+    from repro_torch.kernels.ops import split_operands
+    ops = split_operands(x, d, m, b, eps_lb, eps_ub, device=dev)
+    got = margin_split(*ops)
+    want = ref.margin_split_ref(*ops)
+    err = max(exact(got[0], want[0], "margin_split disp", bits=True),
+              exact(got[1], want[1], "margin_split mask"),
+              exact(got[2], want[2], "margin_split counts"))
+    return err, got
+
+
+def ops_kernel_checks(torch, dev):
+    """The kernels behind the ``ops`` entries against their plain versions
+    at small shapes and on their edge cases.  Returns name -> max abs err."""
+    rng = np.random.default_rng(1)
+    errs = dict(range_scan_batch=0.0, range_scan=0.0, grid_histogram=0.0,
+                margin_split=0.0)
+    # ragged N, > 64 queries (two shared-memory chunks), a tile that is not
+    # a multiple of 32, windows cutting tiles
+    for n, b, d, tile in [(5_003, 70, 8, 512), (3_000, 16, 3, 128),
+                          (1_000, 5, 2, 100)]:
+        e = check_scans(torch, dev, *scan_case(rng, n, b, d, tile), tile)
+        errs["range_scan_batch"] = errs["range_scan"] = max(
+            errs["range_scan"], e)
+    # subnormal rows and bounds, ±inf and ±3.4e38 bounds
+    tiny = np.float32(1e-45)
+    vals = np.array([0.0, -0.0, tiny, -tiny, 2 * tiny, 1e-38, -1e-38,
+                     3.4e38, -3.4e38, np.inf, -np.inf, 1.0], np.float32)
+    rows = np.tile(vals, (2, 43))[:, :512].copy()
+    lo = np.array([[0.0, -np.inf], [tiny, tiny], [-tiny, -3.4e38],
+                   [-np.inf, -np.inf], [3.4e38, 0.0]], np.float32)
+    hi = np.array([[tiny, np.inf], [np.inf, 2 * tiny], [0.0, 3.4e38],
+                   [np.inf, np.inf], [np.inf, np.inf]], np.float32)
+    wins = np.array([[0, 512]] * 5, np.int32)
+    e = check_scans(torch, dev, rows, lo, hi, wins, 256, singles=5)
+    errs["range_scan_batch"] = errs["range_scan"] = max(errs["range_scan"], e)
+
+    for buckets in (16, 64, 128):
+        for n in (999, 100_003):
+            x = rng.normal(0, 3, n).astype(np.float32)
+            d = (0.5 * x + rng.gamma(2.0, 0.2, n)).astype(np.float32)
+            e, _ = check_histogram(torch, dev, x, d, buckets)
+            errs["grid_histogram"] = max(errs["grid_histogram"], e)
+
+    # d on the unfused m*x + b, eps 0: every row with disp == 0 is an
+    # inlier, and a fused multiply-add would flip the rows rounded apart
+    m, b, n_split = np.float32(1.7), np.float32(-3.3), 100_003
+    x = rng.uniform(-100, 100, n_split).astype(np.float32)
+    unfused = m * x + b
+    fused = (np.float64(m) * x.astype(np.float64)
+             + np.float64(b)).astype(np.float32)
+    apart = int((unfused != fused).sum())
+    e, got = check_split(torch, dev, x, unfused, m, b, 0.0, 0.0)
+    if apart == 0 or int(got[2].sum()) != n_split:
+        raise AssertionError(f"margin_split: {apart} rows rounded apart, "
+                             f"{int(got[2].sum())} of {n_split} inliers")
+    x2 = rng.uniform(-1e3, 1e3, 70_001).astype(np.float32)
+    d2 = (2.5 * x2 + 1 + rng.normal(0, 5, 70_001)).astype(np.float32)
+    e2, _ = check_split(torch, dev, x2, d2, 2.5, 1.0, 4.0, 6.0)
+    errs["margin_split"] = max(e, e2)
+
+    # the float32 row-id test: row 2^24 of 2^24 + 1 is dropped
+    big = 2 ** 24 + 1
+    x = rng.uniform(0, 1_000, big).astype(np.float32)
+    d = (2 * x + 5 + rng.normal(0, 3, big)).astype(np.float32)
+    e, h_rows = check_histogram(torch, dev, x, d, 64)
+    errs["grid_histogram"] = max(errs["grid_histogram"], e)
+    e, got = check_split(torch, dev, x, d, 2.0, 5.0, 6.0, 6.0)
+    errs["margin_split"] = max(errs["margin_split"], e)
+    last_in = -6.0 <= float(got[0][big - 1]) <= 6.0
+    if h_rows != big - 1 or int(got[1][big - 1]) != 0:
+        raise AssertionError(f"n={big}: histogram counted {h_rows} rows, "
+                             f"split mask of row {big - 1} is "
+                             f"{int(got[1][big - 1])}")
+    say("kernel", f"range_scan_batch, range_scan == plain versions on 4 "
+        f"cases (ragged N, 70 queries, tile 100, windows cutting tiles, "
+        f"subnormal and ±inf bounds); grid_histogram == plain at 16/64/128 "
+        f"buckets x n 999/100,003; margin_split disp bitwise == plain on "
+        f"{apart:,} rows where fused and unfused m*x+b round apart (all "
+        f"{n_split:,} rows inliers at eps 0); at n = "
+        f"{big:,} both drop row {big - 1:,} (histogram counted {h_rows:,}; "
+        f"that row inside the margin by disp: {last_in}, mask 0): "
+        f"max_abs_err {max(errs.values())}")
+    return errs
 
 
 def check_wave(idx, rects, answers, split_hits):
@@ -246,7 +423,7 @@ def main_phase(torch, dev, cfg):
         f"{max_hits:,}); resident images {resident / 2**20:.1f} MiB, peak "
         f"device memory {peak / 2**20:.1f} MiB; default device options")
     return dict(idx=idx, rects=rects, launches=launches, srv=srv,
-                drain_s=drain_s, stats=after, plan=plan)
+                drain_s=drain_s, stats=after, plan=plan, data=ds.data)
 
 
 def segment_inputs(idx, plan, rects):
@@ -351,6 +528,177 @@ def segments_phase(torch, run, cfg, dev):
         f"tile={v['cfg'][0]} hit_cap={v['cfg'][1]:,} "
         f"scanned={v['scanned']:,} hits={v['hits']:,} == plain (max_abs_err "
         f"{v['err']})" for k, v in out.items()))
+    return out
+
+
+def probe_windows(torch, seg, b):
+    """Each query's ``[lo, hi)`` row window: the smallest span that holds
+    every row whose cell coordinates lie in its probe box; ``[0, 0)`` for
+    an empty box."""
+    coords = seg["coords"]
+    wins = np.zeros((b, 2), np.int32)
+    for q in range(b):
+        inbox = ((coords >= seg["first"][q][:, None])
+                 & (coords <= seg["last"][q][:, None])).all(0)
+        idx = torch.nonzero(inbox)
+        if idx.numel():
+            wins[q] = (int(idx[0]), int(idx[-1]) + 1)
+    return wins
+
+
+def rows_covered(wins):
+    """Rows inside at least one ``[lo, hi)`` window."""
+    total = end = 0
+    for lo, hi in sorted(map(tuple, wins.tolist())):
+        lo = max(lo, end)
+        if hi > lo:
+            total += hi - lo
+            end = hi
+    return total
+
+
+def bound(nbytes, ops):
+    """Least time in ms: bytes over the memory rate vs operations over the
+    float32 rate; the larger wins."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def ops_phase(torch, run, segs, cfg, dev):
+    """The ``repro_torch.kernels`` entry points at the main path's size:
+    one call of each with the launch counts set to 0 just before and read
+    just after, then each kernel against its plain version, timed."""
+    from repro_torch.kernels import (bucket_histogram, grid_histogram,
+                                     margin_split, range_scan,
+                                     range_scan_batch, range_scan_batch_query,
+                                     range_scan_query, ref, split_by_margin)
+    from repro_torch.kernels.ops import histogram_operands, split_operands
+    idx, b, chunk, reps = run["idx"], cfg["wave"], cfg["chunk"], cfg["reps"]
+    seg = segs["primary"]["seg"]
+    rows = seg["rows"]                          # (D, N_pad), +inf pad rows
+    lo_t = seg["flo"][:, :b].contiguous()       # translated, ceil-rounded
+    hi_t = seg["fhi"][:, :b].contiguous()
+    lo, hi = lo_t.T.contiguous(), hi_t.T.contiguous()
+    wins_np = probe_windows(torch, seg, b)
+    wins = torch.as_tensor(wins_np, device=dev)
+    grp = idx.groups[0]
+    dep = grp.dependents[0]
+    fd = grp.models[dep]
+    buckets = idx.config.softfd.bucket_chunks
+    xcol = np.ascontiguousarray(run["data"][:, grp.predictor])
+    dcol = np.ascontiguousarray(run["data"][:, dep])
+    n = xcol.size
+    d, n_pad = rows.shape
+    kernels = (range_scan_batch, range_scan, grid_histogram, margin_split)
+
+    for k in kernels:                       # ---- the ops path's run ----
+        k.launches = 0
+    counts_b, mask_b = range_scan_batch_query(rows, lo, hi, wins, device=dev)
+    count_1, mask_1 = range_scan_query(rows, lo[0], hi[0], wins[0],
+                                       device=dev)
+    hist = bucket_histogram(xcol, dcol, buckets=buckets, device=dev)
+    disp, inlier = split_by_margin(xcol, dcol, fd.m, fd.b, fd.eps_lb,
+                                   fd.eps_ub, device=dev)
+    launches = {k.__name__: k.launches for k in kernels}   # read right after
+    if dev != "cpu" and min(launches.values()) < 1:
+        raise AssertionError(f"an ops entry launched no kernel: {launches}")
+
+    def plain_batch(check=False):
+        err = 0.0
+        for q0 in range(0, b, chunk):
+            sl = slice(q0, q0 + chunk)
+            m, c = ref.range_scan_batch_ref(rows, lo_t[:, sl].contiguous(),
+                                            hi_t[:, sl].contiguous(),
+                                            wins[sl].contiguous())
+            if check:
+                err = max(err, exact(mask_b[sl], m, "range_scan_batch mask"),
+                          exact(counts_b[sl], c.sum(1, dtype=torch.int32),
+                                "range_scan_batch counts"))
+        return err
+
+    out = {k.__name__: dict(launches=launches[k.__name__]) for k in kernels}
+    out["range_scan_batch"]["err"] = plain_batch(check=True)
+    args_1 = (rows, lo_t[:, 0].contiguous(), hi_t[:, 0].contiguous(),
+              wins[0].contiguous())
+    m1, c1 = ref.range_scan_ref(*args_1)
+    out["range_scan"]["err"] = max(
+        exact(mask_1, m1, "range_scan mask"),
+        exact(count_1, c1.sum(dtype=torch.int32), "range_scan count"))
+    h_ops = histogram_operands(xcol, dcol, buckets=buckets, device=dev)
+    out["grid_histogram"]["err"] = exact(
+        hist, ref.grid_histogram_ref(*h_ops, buckets=buckets),
+        "grid_histogram")
+    s_ops = split_operands(xcol, dcol, fd.m, fd.b, fd.eps_lb, fd.eps_ub,
+                           device=dev)
+    w_disp, w_mask, _ = ref.margin_split_ref(*s_ops)
+    out["margin_split"]["err"] = max(
+        exact(disp, w_disp[:n], "margin_split disp", bits=True),
+        exact(inlier, w_mask[:n].bool(), "margin_split mask"))
+
+    # bounds: each input read once, each output written once; rows outside
+    # every window cannot match and need not be read
+    tiles = n_pad // 512
+    win_rows = (wins_np[:, 1] - wins_np[:, 0]).clip(0)
+    out["range_scan_batch"]["bound"] = bound(
+        4 * (d * rows_covered(wins_np) + 2 * d * b + 2 * b + b * n_pad
+             + b * tiles), 2 * b * n_pad + 2 * d * int(win_rows.sum()))
+    out["range_scan"]["bound"] = bound(
+        4 * (d * int(win_rows[0]) + 2 * d + 2 + n_pad + tiles),
+        2 * n_pad + 2 * d * int(win_rows[0]))
+    hp = h_ops[0].shape[0]
+    out["grid_histogram"]["bound"] = bound(4 * (2 * hp + 8 + buckets ** 2),
+                                           9 * hp)
+    sp = s_ops[0].shape[0]
+    out["margin_split"]["bound"] = bound(4 * (4 * sp + 8 + sp // 1024),
+                                         6 * sp)
+
+    lib_note = "not measured on the CPU"
+    if dev != "cpu":
+        timed = {
+            "range_scan_batch": (
+                lambda: range_scan_batch(rows, lo_t, hi_t, wins),
+                plain_batch),
+            "range_scan": (lambda: range_scan(*args_1),
+                           lambda: ref.range_scan_ref(*args_1)),
+            "grid_histogram": (
+                lambda: grid_histogram(*h_ops, buckets=buckets),
+                lambda: ref.grid_histogram_ref(*h_ops, buckets=buckets)),
+            "margin_split": (lambda: margin_split(*s_ops),
+                             lambda: ref.margin_split_ref(*s_ops)),
+        }
+        for name, (kern, plain) in timed.items():
+            out[name]["ms"] = time_ms(torch, kern, reps)
+            out[name]["plain_ms"] = time_ms(torch, plain, max(1, reps // 10))
+        # the counting step alone, on the precomputed flat bucket index
+        x_lo, inv_wx, d_lo, inv_wd, n_valid = h_ops[2][:5]
+        ix = torch.clamp((h_ops[0] - x_lo) * inv_wx, 0, buckets - 1).long()
+        jd = torch.clamp((h_ops[1] - d_lo) * inv_wd, 0, buckets - 1).long()
+        flat = (ix * buckets + jd)[:n]
+        bc_ms = time_ms(torch, lambda: torch.bincount(
+            flat, minlength=buckets * buckets), reps)
+        lib_note = (f"torch.bincount on the precomputed flat index (the "
+                    f"counting step alone) {bc_ms:.4f} ms")
+    hist_rows = int(hist.double().sum())
+    say("ops", f"range_scan_batch_query: primary image D={d} x {n_pad:,} "
+        f"rows, {b} wave rects, probe-box windows {int(win_rows.min()):,}.."
+        f"{int(win_rows.max()):,} rows ({rows_covered(wins_np):,} covered), "
+        f"{int(counts_b.sum()):,} matches; range_scan_query on rect 0: "
+        f"{int(count_1):,} matches; bucket_histogram of FD group 0 (column "
+        f"{grp.predictor} -> {dep}) at {buckets} buckets counted "
+        f"{hist_rows:,} of {n:,} rows, largest bucket {int(hist.max()):,}; "
+        f"split_by_margin (m={fd.m:.6g} b={fd.b:.6g} eps_lb={fd.eps_lb:.6g} "
+        f"eps_ub={fd.eps_ub:.6g}): {int(inlier.sum()):,} of {n:,} rows "
+        f"inliers, row {n - 1:,} inside the margin by disp: "
+        f"{bool(-fd.eps_lb <= float(disp[-1]) <= fd.eps_ub)}, mask "
+        f"{int(inlier[-1])}; launches {launches}; every kernel == plain "
+        f"(max_abs_err {max(v['err'] for v in out.values())})")
+    if dev != "cpu":
+        say("ops", "; ".join(
+            f"{k} {v['ms']:.4f} ms (plain {v['plain_ms']:.3f} ms, bound "
+            f"{v['bound'][0]:.4g} ms by {v['bound'][1]})"
+            for k, v in out.items()) + f"; library_ms: none for each (no "
+            f"single PyTorch call computes these functions); {lib_note}")
     return out
 
 
@@ -475,7 +823,8 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(SRC))
     if args.rehearse:
         run = main_phase(torch, "cpu", REHEARSE)
-        segments_phase(torch, run, REHEARSE, "cpu")
+        segs = segments_phase(torch, run, REHEARSE, "cpu")
+        ops_phase(torch, run, segs, REHEARSE, "cpu")
         print("chip_smoke: rehearsal on the CPU finished; no card, no "
               "result", file=sys.stderr)
         return 3
@@ -485,9 +834,10 @@ def main(argv=None) -> int:
     cfg = FULL
     card_line, kind, count = card_phase(torch)
     build_phase()
-    kernel_phase(torch, "cuda")
+    small_errs = kernel_phase(torch, "cuda")
     run = main_phase(torch, "cuda", cfg)
     segs = segments_phase(torch, run, cfg, "cuda")
+    ops = ops_phase(torch, run, segs, cfg, "cuda")
     entry = times_phase(torch, run, segs, cfg, card_line)
     kernels = [{
         "name": "fused_scan", "route": "cuda",
@@ -499,6 +849,17 @@ def main(argv=None) -> int:
         "bound_ms": entry["bound_ms"], "bound_by": entry["bound_by"],
         "library_ms": None,
     }]
+    for name, body in OPS_KERNELS:
+        o = ops[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": body, "launches": o["launches"],
+            "max_abs_err": max(o["err"], small_errs[name]),
+            "ms": o["ms"], "plain_ms": o["plain_ms"],
+            "bound_ms": o["bound"][0], "bound_by": o["bound"][1],
+            "library_ms": None,
+        })
     print(json.dumps({"kernels": kernels}))
     print(card_line)
     print(json.dumps({"ok": True, "device": {

@@ -30,7 +30,13 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 
 # kernel name -> its sources under csrc/
-SOURCES: Dict[str, tuple] = {"fused_scan": ("fused_scan.cu",)}
+SOURCES: Dict[str, tuple] = {
+    "fused_scan": ("fused_scan.cu",),
+    "range_scan_batch": ("range_scan_batch.cu",),
+    "range_scan": ("range_scan.cu",),
+    "grid_histogram": ("grid_histogram.cu",),
+    "margin_split": ("margin_split.cu",),
+}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -11,7 +11,45 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["fused_scan_ref"]
+__all__ = ["range_scan_ref", "range_scan_batch_ref", "fused_scan_ref",
+           "grid_histogram_ref", "margin_split_ref"]
+
+
+def _valid_rows(n: int, n_valid, device):
+    """Rows whose float32 id is below ``n_valid`` — the reference compares
+    in float32, so above 2^24 a real row can round to ``n_valid`` and drop."""
+    return torch.arange(n, dtype=torch.float32, device=device) < n_valid
+
+
+def range_scan_ref(rows_t, rect_lo, rect_hi, window, *, tile: int = 512):
+    """Plain version of ``range_scan.range_scan``: (mask (N,) i32,
+    counts (N / tile,) i32)."""
+    d, n = rows_t.shape
+    inside = ((rows_t >= rect_lo[:, None]) & (rows_t < rect_hi[:, None])).all(0)
+    gid = torch.arange(n, dtype=torch.int32, device=rows_t.device)
+    in_window = (gid >= window[0]) & (gid < window[1])
+    mask = (inside & in_window).to(torch.int32)
+    counts = mask.reshape(n // tile, tile).sum(1, dtype=torch.int32)
+    return mask, counts
+
+
+def range_scan_batch_ref(rows_t, rect_lo_t, rect_hi_t, windows, *,
+                         tile: int = 512):
+    """Plain version of ``range_scan_batch.range_scan_batch``: (mask (B, N)
+    i32, counts (B, N / tile) i32).  Bounds are (D, B) columns and windows
+    (B, 2), the kernel's contract; temporaries are (B, N), one dim at a
+    time."""
+    d, n = rows_t.shape
+    b = rect_lo_t.shape[1]
+    inside = torch.ones((b, n), dtype=torch.bool, device=rows_t.device)
+    for j in range(d):
+        inside &= (rows_t[j][None, :] >= rect_lo_t[j][:, None]) & (
+            rows_t[j][None, :] < rect_hi_t[j][:, None])
+    gid = torch.arange(n, dtype=torch.int32, device=rows_t.device)[None, :]
+    in_window = (gid >= windows[:, :1]) & (gid < windows[:, 1:])
+    mask = (inside & in_window).to(torch.int32)
+    counts = mask.reshape(b, n // tile, tile).sum(2, dtype=torch.int32)
+    return mask, counts
 
 
 def fused_scan_ref(rows_t, flo_t, fhi_t, alive, coords=None, first=None,
@@ -86,3 +124,27 @@ def fused_scan_ref(rows_t, flo_t, fhi_t, alive, coords=None, first=None,
                        torch.tensor(-1, dtype=torch.int32, device=dev))
     hits = F.pad(body, (0, tile), value=-1)
     return counts, hits, scanned
+
+
+def grid_histogram_ref(x, d, params, *, buckets: int = 64):
+    """Plain version of ``grid_histogram.grid_histogram``: (B, B) f32.
+    Counts in integers and rounds to float32 once (the reference's f32 sum
+    agrees below 2^24 a bucket)."""
+    x_lo, inv_wx, d_lo, inv_wd, n_valid = params[:5]
+    ix = torch.clamp((x - x_lo) * inv_wx, 0, buckets - 1).to(torch.int64)
+    jd = torch.clamp((d - d_lo) * inv_wd, 0, buckets - 1).to(torch.int64)
+    flat = (ix * buckets + jd)[_valid_rows(x.shape[0], n_valid, x.device)]
+    hist = torch.bincount(flat, minlength=buckets * buckets)
+    return hist.to(torch.float32).reshape(buckets, buckets)
+
+
+def margin_split_ref(x, d, params, *, tile: int = 1024):
+    """Plain version of ``margin_split.margin_split``: (disp (N,) f32,
+    mask (N,) i32, counts (N / tile,) i32), ``m * x + b`` rounded twice."""
+    m, b, eps_lb, eps_ub, n_valid = params[:5]
+    n = x.shape[0]
+    disp = d - (m * x + b)
+    mask = ((disp >= -eps_lb) & (disp <= eps_ub)
+            & _valid_rows(n, n_valid, x.device)).to(torch.int32)
+    counts = mask.reshape(n // tile, tile).sum(1, dtype=torch.int32)
+    return disp, mask, counts

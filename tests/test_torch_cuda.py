@@ -1,4 +1,5 @@
-"""The hand-written CUDA kernel against its plain torch version, on the card.
+"""The hand-written CUDA kernels against their plain torch versions, on the
+card.
 
 Run on a machine with an NVIDIA card:
 
@@ -6,7 +7,8 @@ Run on a machine with an NVIDIA card:
 
 Every test skips inside its body when no card is present (the marker is
 registered in ``conftest.py``).  The bar is exact equality: the kernel and
-its plain version compute the same compares and the same integer counts.
+its plain version compute the same compares, the same roundings and the
+same integer counts.
 """
 import numpy as np
 import pytest
@@ -17,7 +19,11 @@ from repro_torch.core import COAXIndex
 from repro_torch.data import knn_rect_queries, make_airline, make_osm
 from repro_torch.engine import QueryServer, split_hits
 from repro_torch.engine.device import CUDA_HIT_CAP
-from repro_torch.kernels import fused_range_scan, fused_scan, ref
+from repro_torch.kernels import (fused_range_scan, fused_scan, grid_histogram,
+                                 margin_split, range_scan, range_scan_batch,
+                                 ref)
+from repro_torch.kernels.ops import (_pad_to, histogram_operands,
+                                     split_operands)
 
 pytestmark = pytest.mark.gpu
 
@@ -179,3 +185,173 @@ def test_hit_cap_reanswer_on_cuda(cuda):
     want = idx.query_batch(rects)
     assert np.array_equal(got[0], want[0])
     assert np.array_equal(got[1], want[1])
+
+
+# ---- the kernels behind the ops entries ------------------------------------
+
+def _scan_case(rng, n, b, d, tile, dev):
+    """Padded rows and (D, B) bounds on ``dev``, windows that cut tiles."""
+    rows = rng.normal(0, 10, (d, n)).astype(np.float32)
+    lo = rng.uniform(-15, 0, (b, d)).astype(np.float32)
+    hi = lo + rng.uniform(0, 25, (b, d)).astype(np.float32)
+    w_lo = rng.integers(0, n // 2, b)
+    wins = np.stack([w_lo, w_lo + rng.integers(1, n, b)], 1).astype(np.int32)
+    wins[0] = (tile // 3, n - tile // 5)          # cuts the first, last tile
+    rows_p = _pad_to(torch.from_numpy(rows).to(dev), tile, float("inf"))
+    return (rows_p.contiguous(), torch.from_numpy(lo.T.copy()).to(dev),
+            torch.from_numpy(hi.T.copy()).to(dev),
+            torch.from_numpy(wins).to(dev))
+
+
+SCAN_CASES = [
+    (5_003, 70, 8, 512),       # ragged N, two shared-memory query chunks
+    (3_000, 16, 3, 128),
+    (1_000, 5, 2, 100),        # a tile that is not a multiple of 32
+]
+
+
+def _equal(got, want):
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("n,b,d,tile", SCAN_CASES)
+def test_range_scans_match_plain_versions(cuda, n, b, d, tile):
+    rows, lo_t, hi_t, wins = _scan_case(np.random.default_rng(n), n, b, d,
+                                        tile, cuda)
+    before = (range_scan_batch.launches, range_scan.launches)
+    got = range_scan_batch(rows, lo_t, hi_t, wins, tile=tile)
+    _equal(got, ref.range_scan_batch_ref(rows, lo_t, hi_t, wins, tile=tile))
+    assert int(got[1].sum()) > 0
+    for q in range(3):
+        lo, hi = lo_t[:, q].contiguous(), hi_t[:, q].contiguous()
+        one = range_scan(rows, lo, hi, wins[q].contiguous(), tile=tile)
+        _equal(one, ref.range_scan_ref(rows, lo, hi, wins[q], tile=tile))
+        _equal(one, (got[0][q], got[1][q]))
+    assert (range_scan_batch.launches, range_scan.launches) == (
+        before[0] + 1, before[1] + 3)
+
+
+def test_range_scans_subnormal_and_infinite_bounds(cuda):
+    tiny = np.float32(1e-45)
+    vals = np.array([0.0, -0.0, tiny, -tiny, 2 * tiny, 1e-38, -1e-38,
+                     3.4e38, -3.4e38, np.inf, -np.inf, 1.0], np.float32)
+    rows = torch.from_numpy(np.tile(vals, (2, 43))[:, :512].copy()).to(cuda)
+    lo = np.array([[0.0, -np.inf], [tiny, tiny], [-tiny, -3.4e38],
+                   [-np.inf, -np.inf], [3.4e38, 0.0]], np.float32)
+    hi = np.array([[tiny, np.inf], [np.inf, 2 * tiny], [0.0, 3.4e38],
+                   [np.inf, np.inf], [np.inf, np.inf]], np.float32)
+    lo_t = torch.from_numpy(lo.T.copy()).to(cuda)
+    hi_t = torch.from_numpy(hi.T.copy()).to(cuda)
+    wins = torch.tensor([[0, 512]] * 5, dtype=torch.int32, device=cuda)
+    got = range_scan_batch(rows, lo_t, hi_t, wins, tile=256)
+    _equal(got, ref.range_scan_batch_ref(rows, lo_t, hi_t, wins, tile=256))
+    for q in range(5):
+        args = (rows, lo_t[:, q].contiguous(), hi_t[:, q].contiguous(),
+                wins[q].contiguous())
+        _equal(range_scan(*args, tile=256),
+               ref.range_scan_ref(*args, tile=256))
+
+
+@pytest.mark.parametrize("buckets", [16, 64, 128])
+@pytest.mark.parametrize("n", [999, 100_003])
+def test_grid_histogram_matches_plain_version(cuda, buckets, n):
+    rng = np.random.default_rng(buckets + n)
+    x = rng.normal(0, 3, n).astype(np.float32)
+    d = (0.5 * x + rng.gamma(2.0, 0.2, n)).astype(np.float32)   # skewed
+    xp, dp, params = histogram_operands(x, d, buckets=buckets, device=cuda)
+    before = grid_histogram.launches
+    got = grid_histogram(xp, dp, params, buckets=buckets)
+    assert grid_histogram.launches == before + 1
+    want = ref.grid_histogram_ref(xp, dp, params, buckets=buckets)
+    _equal((got,), (want,))
+    assert int(got.double().sum()) == n
+
+
+def _fma_apart_case(rng, n):
+    """Columns with many rows whose ``m * x + b`` rounds apart fused and
+    unfused, and ``d`` on the unfused value, so such rows sit on the
+    margin's edge.  Returns (x, d, m, b, eps, rows rounded apart)."""
+    m, b, eps = np.float32(1.7), np.float32(-3.3), np.float32(0.0)
+    x = rng.uniform(-100, 100, n).astype(np.float32)
+    unfused = m * x + b
+    fused = (np.float64(m) * x.astype(np.float64)
+             + np.float64(b)).astype(np.float32)
+    return x, unfused.copy(), m, b, eps, unfused != fused
+
+
+def test_margin_split_matches_plain_version_bitwise(cuda):
+    rng = np.random.default_rng(3)
+    x, d, m, b, eps, apart = _fma_apart_case(rng, 100_003)
+    assert apart.sum() > 1_000
+    xp, dp, params = split_operands(x, d, m, b, eps, eps, device=cuda)
+    before = margin_split.launches
+    disp, mask, counts = margin_split(xp, dp, params)
+    assert margin_split.launches == before + 1
+    w_disp, w_mask, w_counts = ref.margin_split_ref(xp, dp, params)
+    assert torch.equal(disp.view(torch.int32), w_disp.view(torch.int32))
+    _equal((mask, counts), (w_mask, w_counts))
+    # d equals the unfused prediction: disp is exactly 0 on every real row,
+    # so every real row is an inlier at eps = 0 (a fused FMA would flip
+    # the rows rounded apart)
+    assert int(counts.sum()) == 100_003
+    # random columns too
+    x2 = rng.uniform(-1e3, 1e3, 70_001).astype(np.float32)
+    d2 = (2.5 * x2 + 1 + rng.normal(0, 5, 70_001)).astype(np.float32)
+    xp, dp, params = split_operands(x2, d2, 2.5, 1.0, 4.0, 6.0, device=cuda)
+    got = margin_split(xp, dp, params)
+    want = ref.margin_split_ref(xp, dp, params)
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    _equal(got[1:], want[1:])
+
+
+def test_row_id_test_above_2_24_on_the_card(cuda):
+    """float32(2^24 + 1) == 2^24: the kernels drop row 2^24 as their plain
+    versions and the reference do."""
+    n = 2 ** 24 + 1
+    rng = np.random.default_rng(9)
+    x = rng.uniform(0, 1_000, n).astype(np.float32)
+    d = (2 * x + 5 + rng.normal(0, 3, n)).astype(np.float32)
+    ops_h = histogram_operands(x, d, buckets=64, device=cuda)
+    got = grid_histogram(*ops_h, buckets=64)
+    _equal((got,), (ref.grid_histogram_ref(*ops_h, buckets=64),))
+    assert int(got.double().sum()) == n - 1
+    ops_s = split_operands(x, d, 2.0, 5.0, 6.0, 6.0, device=cuda)
+    disp, mask, counts = margin_split(*ops_s)
+    w = ref.margin_split_ref(*ops_s)
+    assert torch.equal(disp.view(torch.int32), w[0].view(torch.int32))
+    _equal((mask, counts), w[1:])
+    assert int(mask[n - 1]) == 0 and -6.0 <= float(disp[n - 1]) <= 6.0
+
+
+def test_new_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    rows = torch.zeros((2, 512), device=cuda)
+    lo = torch.zeros(2, device=cuda)
+    win = torch.tensor([0, 512], dtype=torch.int32, device=cuda)
+    col = torch.zeros(512, device=cuda)
+    params = torch.zeros(8, device=cuda)
+    with pytest.raises(TypeError):
+        range_scan(rows, lo, lo, win.float(), tile=256)
+    with pytest.raises(ValueError):
+        range_scan(rows, lo[:1], lo, win, tile=256)
+    with pytest.raises(ValueError):                  # bounds on the CPU
+        range_scan(rows, lo.cpu(), lo.cpu(), win, tile=256)
+    lo_t = torch.zeros((2, 4), device=cuda)
+    wins = torch.zeros((4, 2), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):                  # not contiguous
+        range_scan_batch(rows, lo_t.T.contiguous().T, lo_t, wins, tile=256)
+    with pytest.raises(TypeError):
+        range_scan_batch(rows, lo_t, lo_t, wins.long(), tile=256)
+    with pytest.raises(ValueError):                  # slab beyond smem
+        wide = torch.zeros((200, 512), device=cuda)
+        w_t = torch.zeros((200, 4), device=cuda)
+        range_scan_batch(wide, w_t, w_t, wins, tile=512)
+    with pytest.raises(TypeError):
+        grid_histogram(col, col, params.double(), tile=256)
+    with pytest.raises(ValueError):
+        grid_histogram(col, col[:256], params, tile=256)
+    with pytest.raises(ValueError):
+        margin_split(col, col, params[:5], tile=256)
+    with pytest.raises(TypeError):
+        margin_split(col, col.half(), params, tile=256)

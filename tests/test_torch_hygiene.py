@@ -57,6 +57,26 @@ def test_build_without_nvcc_raises_and_writes_nothing(monkeypatch, tmp_path):
     assert not (tmp_path / "build").exists()
 
 
+@pytest.mark.parametrize("name", ["range_scan_batch", "range_scan",
+                                  "grid_histogram", "margin_split"])
+def test_new_kernel_build_without_nvcc_raises_and_writes_nothing(
+        monkeypatch, tmp_path, name):
+    """The kernels behind the ``ops`` entries build as ``fused_scan`` does:
+    without ``nvcc`` the first load raises and leaves no build behind."""
+    from repro_torch.kernels import build
+    assert name in build.SOURCES
+    if build._target(name).exists():
+        pytest.skip("the kernel is already built here")
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(build, "_LIBS", {})
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.load(name)
+    assert not (tmp_path / "build").exists()
+    assert name not in build._LIBS
+
+
 def _no_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
@@ -101,6 +121,7 @@ def test_chip_smoke_rehearsal_and_no_card_exit():
                          timeout=300)
     assert reh.returncode == 3, reh.stderr
     assert "[main]" in reh.stdout and "[segments]" in reh.stdout
+    assert "[ops]" in reh.stdout
     assert '"ok"' not in reh.stdout
     if torch.cuda.is_available():
         return
