@@ -8,8 +8,11 @@ Phases, one line of output each:
   build     nvcc builds every kernel from ``src/repro_torch/kernels/csrc``
             (registers, shared memory and spills from ``-Xptxas -v``);
   kernel    each kernel against its plain torch version on the card, exact
-            equality: fused_scan on all four specialisations, small shapes
-            and a hit_cap overflow case; range_scan_batch and range_scan on
+            equality: fused_scan on all four specialisations, small shapes,
+            a hit_cap overflow case, Bp=130, a 2^20-row segment (its stage
+            ring wraps many times), hit_cap 37 (cut mid-word), a run of dead
+            tiles and a one-tile delta segment, each twice bit-identical
+            with one launch counted per call; range_scan_batch and range_scan on
             ragged N, windows that cut tiles, subnormal and ±inf bounds;
             grid_histogram at 16/64/128 buckets; margin_split on rows where
             a fused and an unfused m*x + b round apart (disp bitwise); both
@@ -66,6 +69,7 @@ FULL = dict(rows=20_000_000, queries=512, wave=64, knn=64, sample_cap=50_000,
 REHEARSE = dict(rows=200_000, queries=64, wave=16, knn=64, sample_cap=20_000,
                 inserts=200, deletes=50, waves=4, reps=1, chunk=4)
 PAPER_ROWS = 80_000_000       # the paper's airline table
+PASSES = r"count_pass|scan_pass|expand_pass"     # fused_scan's kernels
 
 # the kernels behind the ops entries, and the TPU kernel body each replaces
 OPS_KERNELS = (
@@ -105,7 +109,7 @@ def build_phase():
         for fn, body in re.findall(
                 r"Function properties for (\S+)\n(.*?)(?=ptxas info\s+: "
                 r"Compile time|\Z)", log, re.S):
-            m = re.search(r"(count_pass|scan_pass|write_pass|"
+            m = re.search(r"(count_pass|scan_pass|expand_pass|"
                           r"range_scan_batch_kernel|range_scan_kernel|"
                           r"histogram_kernel|to_float_kernel|"
                           r"margin_split_kernel)(?:ILb(\d)ELb(\d)E)?", fn)
@@ -146,7 +150,8 @@ def kernel_phase(torch, dev):
     rng = np.random.default_rng(0)
     cases = 0
     for n, b, d, tile, cap in [(5_000, 70, 8, 512, 1024),
-                               (3_000, 16, 8, 128, 8)]:
+                               (3_000, 16, 8, 128, 8),
+                               (5_000, 130, 8, 512, 1024)]:
         rows_t = rng.normal(0, 10, (d, n)).astype(np.float32)
         lo = rng.uniform(-15, 0, (b, d)).astype(np.float32)
         hi = lo + rng.uniform(0, 25, (b, d)).astype(np.float32)
@@ -179,10 +184,76 @@ def kernel_phase(torch, dev):
                 tile=tile, hit_cap=cap, **kw)
             compare((got[0][:, None], got[1], got[2][:, None]), want, cap)
             cases += 1
+    edges = fused_scan_edges(torch, dev)
     say("kernel", f"fused_scan == plain version on {cases} cases (4 "
-        "specialisations x 2 shapes, one with hit_cap=8 overflowing): "
-        "max_abs_err 0")
+        "specialisations x 3 shapes: one with hit_cap=8 overflowing, one "
+        f"with Bp=130) and {edges}: max_abs_err 0")
     return ops_kernel_checks(torch, dev)
+
+
+def cell_major(rng, n, n_pad, b, dead=(), d=8, k=3, c=8):
+    """A grid-shaped segment on the host as the device plane lays it out
+    (rows cell-major, dead padding tail, ``dead`` row ranges tombstoned):
+    the base operands and the four stage sets."""
+    cell = np.sort(rng.integers(0, c ** k, n))
+    coords = np.full((k, n_pad), -1, np.int32)
+    for j in range(k):
+        coords[j, :n] = (cell // c ** (k - 1 - j)) % c
+    rows_t = np.full((d, n_pad), np.inf, np.float32)
+    rows_t[:, :n] = rng.normal(0, 10, (d, n))
+    alive = np.zeros((1, n_pad), np.int32)
+    alive[0, :n] = rng.random(n) > 0.05
+    for lo, hi in dead:
+        alive[0, lo:hi] = 0
+    sv = np.full((1, n_pad), np.inf, np.float32)
+    sv[0, :n] = rows_t[0, :n]
+    first = rng.integers(0, c, (b, k)).astype(np.int32)
+    last = np.minimum(first + rng.integers(0, 3, (b, k)), c - 1).astype(
+        np.int32)
+    lo = rng.uniform(-20, 0, (b, d)).astype(np.float32)
+    hi = lo + rng.uniform(5, 40, (b, d)).astype(np.float32)
+    probe = dict(coords=coords, first=first, last=last)
+    sort = dict(sv=sv, tband=np.stack([lo[:, 0], hi[:, 0]], 1))
+    return ([rows_t, lo.T.copy(), hi.T.copy(), alive],
+            [{}, probe, sort, {**probe, **sort}])
+
+
+def fused_scan_edges(torch, dev):
+    """fused_scan against its plain version where the kernel's design has
+    edges: a ring of tile stages that wraps many times (2^20 rows), a
+    hit_cap that cuts inside a tile and a bitmap word, a run of dead tiles,
+    a one-tile delta-shaped segment; two launches bit-identical; one
+    launch counted per call."""
+    from repro_torch.kernels import fused_scan, ref
+    rng = np.random.default_rng(3)
+    cases = {
+        "2^20 rows": (cell_major(rng, 2 ** 20 - 300, 2 ** 20, 64), 512, 1024),
+        "hit_cap 37": (cell_major(rng, 60_000, 60_416, 64), 512, 37),
+        "dead tiles 8..39": (cell_major(rng, 60_000, 60_416, 64,
+                                        dead=[(4_096, 20_480)]), 512, 1024),
+        "one delta tile": (cell_major(rng, 100, 128, 64), 128, 128),
+    }
+    for name, ((base, stage_sets), tile, cap) in cases.items():
+        if name == "one delta tile":
+            stage_sets = [{}]
+        for stages in stage_sets:
+            args = [torch.as_tensor(a, device=dev) for a in base]
+            kw = {key: torch.as_tensor(a, device=dev)
+                  for key, a in stages.items()}
+            before = fused_scan.launches
+            got = fused_scan(*args, **kw, tile=tile, hit_cap=cap)
+            again = fused_scan(*args, **kw, tile=tile, hit_cap=cap)
+            if dev != "cpu" and fused_scan.launches != before + 2:
+                raise AssertionError(f"{name}: two calls counted "
+                                     f"{fused_scan.launches - before}")
+            for x, y in zip(got, again):
+                if not torch.equal(x, y):
+                    raise AssertionError(f"{name}: two launches differ")
+            want = ref.fused_scan_ref(*args, **kw, tile=tile, hit_cap=cap)
+            compare(got, want, cap)
+            exact(got[1], want[1], f"{name} hits with their -1 tail")
+    return ("on " + ", ".join(cases) + " (every specialisation; each twice, "
+            "bit-identical, one launch counted per call)")
 
 
 def exact(got, want, what, bits=False):
@@ -721,7 +792,7 @@ def device_busy_share(torch, srv, rects):
         if us is None:
             us = getattr(evt, "self_cuda_time_total", 0.0)
         busy += us
-        if re.search(r"count_pass|scan_pass|write_pass", evt.key):
+        if re.search(PASSES, evt.key):
             kern += us
     if busy <= 0:
         return None
@@ -743,9 +814,43 @@ def pass_breakdown(torch, seg, c, reps=5):
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
             us = getattr(evt, "self_cuda_time_total", 0.0)
-        m = re.search(r"count_pass|scan_pass|write_pass", evt.key)
+        m = re.search(PASSES, evt.key)
         name = m.group(0) if m else "other"
         out[name] = out.get(name, 0.0) + us / 1e3 / reps
+    return out
+
+
+def ring_sweep(torch, seg, c, reps, rows=(512, 256), depths=(1, 2, 3)):
+    """The primary launch's time for each count-pass row tile and ring
+    depth, forced through the plan's limits (restored after), each
+    configuration's output equal to the default plan's: (rows, stages,
+    blocks per SM its shared memory allows, ms)."""
+    import importlib
+    fs_mod = importlib.import_module("repro_torch.kernels.fused_scan")
+    names = ("MAX_TILE_ROWS", "MAX_STAGES", "BLOCKS_PER_SM")
+    default = [getattr(fs_mod, name) for name in names]
+    d, n = seg["rows"].shape
+    k = seg["coords"].shape[0] if c[2] else 0
+    bp = seg["flo"].shape[1]
+    want = _call(fs_mod.fused_scan, seg, c)
+    out = []
+    try:
+        for r in rows:
+            for depth in depths:
+                for name, v in zip(names, (r, depth, 1)):
+                    setattr(fs_mod, name, v)
+                plan = fs_mod.launch_plan(d, k, c[3], c[0], n, bp)
+                got = _call(fs_mod.fused_scan, seg, c)
+                for g, w in zip(got, want):
+                    exact(g, w, f"{plan.tile_rows} rows x {plan.stages} "
+                          "stages against the default plan")
+                per_sm = fs_mod.SM_SMEM // (plan.smem + fs_mod.BLOCK_RESERVED)
+                ms = time_ms(torch, lambda: _call(fs_mod.fused_scan, seg, c),
+                             reps)
+                out.append((plan.tile_rows, plan.stages, per_sm, ms))
+    finally:
+        for name, v in zip(names, default):
+            setattr(fs_mod, name, v)
     return out
 
 
@@ -784,13 +889,20 @@ def times_phase(torch, run, segs, cfg, card_line):
                      f"{ops:.4g} ops)")
         if name == "primary":
             entry = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by)
-    passes = pass_breakdown(torch, segs["primary"]["seg"],
-                            segs["primary"]["cfg"])
+    ring = ring_sweep(torch, segs["primary"]["seg"], segs["primary"]["cfg"],
+                      reps)
+    parts = []
+    for name, s in segs.items():
+        passes = pass_breakdown(torch, s["seg"], s["cfg"])
+        parts.append(f"{name} launch by pass: " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in sorted(passes.items())))
     wall, host = host_breakdown(run["idx"], run["rects"][:cfg["wave"]])
-    say("breakdown", "primary launch by pass: " + ", ".join(
-        f"{k} {v:.4f} ms" for k, v in sorted(passes.items()))
-        + f"; one synchronous wave {wall * 1e3:.0f} ms on the host, top own "
-        f"time: {', '.join(host)}")
+    say("breakdown", "; ".join(parts) + f"; one synchronous wave "
+        f"{wall * 1e3:.0f} ms on the host, top own time: {', '.join(host)}")
+    say("ring", "primary launch by the count pass's row tile and ring "
+        "depth (blocks per SM its shared memory allows): " + "; ".join(
+            f"{r} rows x {st} stages, {per_sm}/SM: {ms:.4f} ms"
+            for r, st, per_sm, ms in ring))
     st = run["stats"]
     qps = len(run["rects"]) / run["drain_s"]
     busy = device_busy_share(torch, run["srv"], run["rects"])

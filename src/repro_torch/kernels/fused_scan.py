@@ -28,39 +28,97 @@ version ``ref.fused_scan_ref``.  There is no fallback between the two.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from . import ref
+from ._abi import SMEM_LIMIT, VP, I, check, launch
 
 DEFAULT_TILE = 512
 DEFAULT_HIT_CAP = 1024
 
-__all__ = ["fused_scan", "DEFAULT_TILE", "DEFAULT_HIT_CAP"]
+__all__ = ["fused_scan", "launch_plan", "LaunchPlan", "DEFAULT_TILE",
+           "DEFAULT_HIT_CAP"]
 
-_VP, _I = ctypes.c_void_p, ctypes.c_int
-
-
-def _lib():
-    from .build import load
-    lib = load("fused_scan")
-    if lib.coax_fused_scan.argtypes is None:    # first use: declare the ABI
-        lib.coax_fused_scan.argtypes = [_VP] * 13 + [_I] * 8 + [_VP]
-        lib.coax_fused_scan.restype = _I
-        lib.coax_error_string.argtypes = [_I]
-        lib.coax_error_string.restype = ctypes.c_char_p
-    return lib
+QCHUNK = 128          # queries one count-pass launch stages in shared memory
+SCAN_CHUNK = 64       # tiles per scan chunk (csrc/fused_scan.cu CH)
+MAX_TILE_ROWS = 512   # the kernel's row tile: at most this, dividing `tile`
+MAX_STAGES = 3        # depth of the count pass's ring of tile stages
+BLOCKS_PER_SM = 6     # count-pass blocks an SM should hold, before depth
+                      # (its registers hold 6 blocks of 256 threads)
+SM_SMEM = 233_472     # shared memory of one Hopper SM
+BLOCK_RESERVED = 1_024    # of it, what the card keeps back for each block
 
 
-def _check(t, name, dtype, shape, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, rows_t on {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+class LaunchPlan(NamedTuple):
+    """How ``csrc/fused_scan.cu`` runs one call: its own row tile,
+    count-pass threads per block, ring stages, queries per count launch
+    (``launches`` of them), the count pass's dynamic shared memory in bytes
+    (the kernel recomputes it and refuses a mismatch), row tiles, scan
+    chunks, and the int32 words of the scratch and of the hit bitmap."""
+    tile_rows: int
+    threads: int
+    stages: int
+    qchunk: int
+    launches: int
+    smem: int
+    num_tiles: int
+    chunks: int
+    scratch_words: int
+    bitmap_words: int
+
+
+def launch_plan(d: int, k: int, has_sort: bool, tile: int, n: int,
+                bp: int) -> LaunchPlan:
+    """The kernel's sizing for ``d`` row dims, ``k`` probe dims (0 without
+    a probe), a sort plane or not, ``n`` rows in tiles of ``tile`` (a
+    multiple of 32 dividing ``n``) and ``bp`` queries.  The row tile is
+    the largest power of two up to ``MAX_TILE_ROWS`` dividing ``tile``.
+    Blocks on an SM come first, ring depth second: the ring takes as many
+    stages (at most ``MAX_STAGES``) as leave ``BLOCKS_PER_SM`` blocks on an
+    SM, else as leave one block fewer, and so on; raises when one stage
+    does not fit one block."""
+    rows = next(t for t in (512, 256, 128, 64, 32)
+                if t <= MAX_TILE_ROWS and tile % t == 0)
+    threads = min(rows, 256)
+    nw = threads // 32
+    qchunk = min(bp, QCHUNK)
+    stage = 4 * rows * (d + k + int(has_sort) + 1)
+    # per stage: its planes, an mbarrier and its item id; then the query
+    # bounds and non-empty flags, the warps' boxes, and three buffers of
+    # per-query hit, candidate and word-mask slots
+    fixed = 4 * (qchunk * (2 * d + 2 * k + 3) + nw * 2 * k + 9 * qchunk)
+
+    def smem(s):
+        return s * (stage + 12) + fixed
+
+    stages = None
+    for blocks in range(BLOCKS_PER_SM, 0, -1):
+        share = min(SM_SMEM // blocks - BLOCK_RESERVED, SMEM_LIMIT)
+        stages = next((s for s in range(MAX_STAGES, 0, -1)
+                       if smem(s) <= share), None)
+        if stages is not None:
+            break
+    if stages is None:
+        raise ValueError(f"a tile of {rows} rows x {d + k + has_sort + 1} "
+                         f"planes does not fit the kernel's shared memory")
+    num_tiles = n // rows
+    chunks = -(-num_tiles // SCAN_CHUNK)
+    launches = -(-bp // qchunk)
+    # the pair list (4 words a pair, as many as (tile, query) pairs); chunk
+    # sums (hit, cand), the pair count and the tickets, zeroed; chunk
+    # offsets; tile hit counts
+    scratch = (4 * num_tiles * bp + 2 * chunks * bp + 1 + launches
+               + chunks * bp + num_tiles * bp)
+    return LaunchPlan(rows, threads, stages, qchunk, launches, smem(stages),
+                      num_tiles, chunks, scratch, bp * (n // 32))
+
+
+def _aligned(t):
+    """``t``, or a fresh copy when its data is not 16-byte aligned (the
+    kernel's bulk copies read whole planes from 16-byte boundaries)."""
+    return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
 
 
 def fused_scan(rows_t, flo_t, fhi_t, alive, coords=None, first=None,
@@ -103,39 +161,35 @@ def fused_scan(rows_t, flo_t, fhi_t, alive, coords=None, first=None,
     if bp < 1 or n >= 2 ** 31 or hit_cap < 1:
         raise ValueError(f"unsupported sizes: Bp={bp}, N={n}, hit_cap={hit_cap}")
     f32, i32 = torch.float32, torch.int32
-    _check(rows_t, "rows_t", f32, (d, n), dev)
-    _check(flo_t, "flo_t", f32, (d, bp), dev)
-    _check(fhi_t, "fhi_t", f32, (d, bp), dev)
-    _check(alive, "alive", i32, (1, n), dev)
+    check(rows_t, "rows_t", f32, (d, n), dev)
+    check(flo_t, "flo_t", f32, (d, bp), dev)
+    check(fhi_t, "fhi_t", f32, (d, bp), dev)
+    check(alive, "alive", i32, (1, n), dev)
     k = 0
     if probe:
         k = coords.shape[0]
-        _check(coords, "coords", i32, (k, n), dev)
-        _check(first, "first", i32, (bp, k), dev)
-        _check(last, "last", i32, (bp, k), dev)
+        check(coords, "coords", i32, (k, n), dev)
+        check(first, "first", i32, (bp, k), dev)
+        check(last, "last", i32, (bp, k), dev)
     if has_sort:
-        _check(sv, "sv", f32, (1, n), dev)
-        _check(tband, "tband", f32, (bp, 2), dev)
+        check(sv, "sv", f32, (1, n), dev)
+        check(tband, "tband", f32, (bp, 2), dev)
 
-    lib = _lib()
-    counts = torch.empty((bp, 1), dtype=i32, device=dev)
-    scanned = torch.empty((bp, 1), dtype=i32, device=dev)
+    plan = launch_plan(d, k, has_sort, tile, n, bp)
+    rows_t, alive, coords, sv = (_aligned(t) for t in (rows_t, alive, coords,
+                                                        sv))
+    counts, scanned = torch.empty((2, bp, 1), dtype=i32, device=dev)
+    # the scratch (its pair list first, 16-byte aligned), then the bitmap
+    scratch = torch.empty(plan.scratch_words + plan.bitmap_words, dtype=i32,
+                          device=dev)
+    bitmap = scratch[plan.scratch_words:]
     hits = torch.full((bp, hit_cap + tile), -1, dtype=i32, device=dev)
-    scratch = torch.empty((3, bp, n // tile), dtype=i32, device=dev)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.coax_fused_scan(
-            ptr(rows_t), ptr(flo_t), ptr(fhi_t), ptr(alive), ptr(coords),
-            ptr(first), ptr(last), ptr(sv), ptr(tband), ptr(counts),
-            ptr(hits), ptr(scanned), ptr(scratch), d, n, bp, k, tile,
-            hit_cap, int(probe), int(has_sort), stream)
-    if rc != 0:
-        raise RuntimeError(f"fused_scan launch failed: CUDA error {rc} "
-                           f"({lib.coax_error_string(rc).decode()})")
+    launch("fused_scan", "coax_fused_scan",
+           [VP] * 14 + [I] * 11 + [ctypes.c_longlong], dev,
+           rows_t, flo_t, fhi_t, alive, coords, first, last, sv, tband,
+           counts, hits, scanned, scratch, bitmap, d, n, bp, k, tile,
+           hit_cap, int(probe), int(has_sort), plan.tile_rows, plan.stages,
+           plan.qchunk, plan.smem)
     fused_scan.launches += 1
     return counts, hits, scanned
 

@@ -10,6 +10,8 @@ registered in ``conftest.py``).  The bar is exact equality: the kernel and
 its plain version compute the same compares, the same roundings and the
 same integer counts.
 """
+import importlib
+
 import numpy as np
 import pytest
 
@@ -24,6 +26,8 @@ from repro_torch.kernels import (fused_range_scan, fused_scan, grid_histogram,
                                  ref)
 from repro_torch.kernels.ops import (_pad_to, histogram_operands,
                                      split_operands)
+
+fused_scan_module = importlib.import_module("repro_torch.kernels.fused_scan")
 
 pytestmark = pytest.mark.gpu
 
@@ -59,6 +63,7 @@ def _assert_same(got, want, cap):
     (700, 5, 3, 256, 64),          # ragged N, few queries
     (5_000, 70, 4, 512, 1024),     # > 32 queries: two reduction chunks
     (3_000, 16, 8, 128, 8),        # tiny hit_cap: overflow on most queries
+    (5_000, 130, 8, 512, 1024),    # > 128 queries: two count launches
 ])
 def test_kernel_matches_plain_version(cuda, n, b, d, tile, cap):
     rng = np.random.default_rng(n + b)
@@ -123,6 +128,93 @@ def test_kernel_cell_major_segment(cuda):
                               tile=512, hit_cap=1024)
     _assert_same(got, want, 1024)
     assert int(got[2].sum()) > 0              # candidates were scanned
+
+
+def _cell_major(rng, n, n_pad, b, d=8, k=3, c=8, dead=()):
+    """A grid-shaped segment as the device plane lays it out: rows
+    cell-major, a dead padding tail, ``dead`` row ranges tombstoned; all
+    four operand sets (none, probe, sort, probe+sort) as kernel inputs."""
+    cell = np.sort(rng.integers(0, c ** k, n))
+    coords = np.full((k, n_pad), -1, np.int32)
+    for j in range(k):
+        coords[j, :n] = (cell // c ** (k - 1 - j)) % c
+    rows_t = np.full((d, n_pad), np.inf, np.float32)
+    rows_t[:, :n] = rng.normal(0, 10, (d, n))
+    alive = np.zeros((1, n_pad), np.int32)
+    alive[0, :n] = rng.random(n) > 0.05
+    for lo, hi in dead:
+        alive[0, lo:hi] = 0
+    sv = np.full((1, n_pad), np.inf, np.float32)
+    sv[0, :n] = rows_t[0, :n]
+    first = rng.integers(0, c, (b, k)).astype(np.int32)
+    last = np.minimum(first + rng.integers(0, 3, (b, k)),
+                      c - 1).astype(np.int32)
+    lo = rng.uniform(-20, 0, (b, d)).astype(np.float32)
+    hi = lo + rng.uniform(5, 40, (b, d)).astype(np.float32)
+    tband = np.stack([lo[:, 0], hi[:, 0]], 1)
+    base = [rows_t, lo.T.copy(), hi.T.copy(), alive]
+    probe = dict(coords=coords, first=first, last=last)
+    sort = dict(sv=sv, tband=tband)
+    return base, [{}, probe, sort, {**probe, **sort}]
+
+
+@pytest.mark.parametrize("case", ["ring_wraps", "deep_ring_wraps",
+                                  "cap_mid_word", "dead_run",
+                                  "delta_one_tile", "bp_130"])
+def test_redesign_edges_match_plain_version(cuda, case, monkeypatch):
+    """The count pass's stage ring wrapping many times (2^20 rows at tile
+    512; at the plan's depth and at three stages), a hit_cap of 37 that
+    cuts inside a tile and a bitmap word, a run of all-dead tiles, a
+    one-tile delta-shaped segment (tile 128), and 130 queries: each equal
+    to the plain version, every specialisation."""
+    rng = np.random.default_rng(len(case))
+    tile, cap = 512, 1024
+    if case == "deep_ring_wraps":            # one block an SM, three stages
+        monkeypatch.setattr(fused_scan_module, "BLOCKS_PER_SM", 1)
+        assert fused_scan_module.launch_plan(
+            8, 3, True, 512, 2 ** 20, 64).stages == 3
+    if case in ("ring_wraps", "deep_ring_wraps"):
+        base, stage_sets = _cell_major(rng, 2 ** 20 - 300, 2 ** 20, 64)
+    elif case == "cap_mid_word":
+        base, stage_sets = _cell_major(rng, 60_000, 60_416, 64)
+        cap = 37
+    elif case == "dead_run":
+        base, stage_sets = _cell_major(rng, 60_000, 60_416, 64,
+                                       dead=[(4_096, 20_480)])
+    elif case == "delta_one_tile":
+        base, _ = _cell_major(rng, 100, 128, 64)
+        stage_sets, tile, cap = [{}], 128, 128
+    else:
+        base, stage_sets = _cell_major(rng, 60_000, 60_416, 130)
+    for stages in stage_sets:
+        args = [torch.from_numpy(a) for a in base]
+        kw = {name: torch.from_numpy(a) for name, a in stages.items()}
+        want = ref.fused_scan_ref(*args, **kw, tile=tile, hit_cap=cap)
+        got = fused_scan(*(a.to(cuda) for a in args),
+                         **{name: a.to(cuda) for name, a in kw.items()},
+                         tile=tile, hit_cap=cap)
+        _assert_same(got, want, cap)
+        if case == "cap_mid_word":
+            assert int((got[0] > cap).sum()) > 0     # the cap did cut
+        if case == "dead_run":
+            assert int(got[2].sum()) > 0
+
+
+def test_two_launches_identical_and_counted_once(cuda):
+    """Two calls on the same inputs give bit-identical outputs (no atomics
+    place hits), and each call counts exactly one launch."""
+    base, stage_sets = _cell_major(np.random.default_rng(11), 60_000, 60_416,
+                                   64)
+    args = [torch.from_numpy(a).to(cuda) for a in base]
+    kw = {name: torch.from_numpy(a).to(cuda)
+          for name, a in stage_sets[3].items()}
+    before = fused_scan.launches
+    one = fused_scan(*args, **kw, tile=512, hit_cap=4096)
+    assert fused_scan.launches == before + 1
+    two = fused_scan(*args, **kw, tile=512, hit_cap=4096)
+    assert fused_scan.launches == before + 2
+    for x, y in zip(one, two):
+        assert torch.equal(x, y)
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
