@@ -33,10 +33,22 @@ Phases, one line of output each:
             wave's 64 rects and their probe-box windows, range_scan_query
             on the first, bucket_histogram (64 buckets) and split_by_margin
             on the first FD group's predictor and dependent over all rows;
-            each kernel equal to its plain version, timed (CUDA events),
-            with its bound;
+            each kernel equal to its plain version, timed (CUDA events
+            over back-to-back calls, and the kernel's own device time from
+            torch.profiler), with its bound;
   times     per-launch kernel time (CUDA events), plain-version time, bound,
-            server QPS and wave latency, device busy share.
+            server QPS and wave latency, device busy share;
+  background  the main phase's index rebuilt with COAXIndex.from_state
+            (no refit) under background_compact=True and a size trigger
+            that the main phase's trickle of writes fires within a few
+            waves; pipelined QueryServer rounds of two waves, writes
+            between rounds, served back to back until the background build
+            installs (inside a drain, at a wave boundary) and 8 rounds
+            after; then every wave checked against a host twin (the same
+            state on the numpy host path, given the same writes); prints
+            wave latency before, during and after the build, build start
+            -> install seconds, where it installed, the replayed tail, the
+            main phase's synchronous compaction time for contrast.
 Then one JSON line of per-kernel numbers, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failed phase raises: the script
 exits non-zero and prints no result.  It also exits non-zero without a
@@ -68,6 +80,12 @@ FULL = dict(rows=20_000_000, queries=512, wave=64, knn=64, sample_cap=50_000,
             inserts=2_000, deletes=500, waves=8, reps=20, chunk=4)
 REHEARSE = dict(rows=200_000, queries=64, wave=16, knn=64, sample_cap=20_000,
                 inserts=200, deletes=50, waves=4, reps=1, chunk=4)
+# the background phase: write batches (each inserts + deletes) and the size
+# trigger, in batches; the build fires on the 8th batch and the rest of the
+# batches (the replayed tail) stay below the trigger, so the replay fires
+# no nested synchronous compaction.  During the build a batch goes in every
+# BG_EVERY rounds of two waves; BG_AFTER rounds are served after the install
+BG_BATCHES, BG_TRIGGER, BG_EVERY, BG_AFTER, BG_WAIT_S = 14, 8, 2, 8, 900
 PAPER_ROWS = 80_000_000       # the paper's airline table
 PASSES = r"count_pass|scan_pass|expand_pass"     # fused_scan's kernels
 
@@ -111,8 +129,8 @@ def build_phase():
                 r"Compile time|\Z)", log, re.S):
             m = re.search(r"(count_pass|scan_pass|expand_pass|"
                           r"range_scan_batch_kernel|range_scan_kernel|"
-                          r"histogram_kernel|to_float_kernel|"
-                          r"margin_split_kernel)(?:ILb(\d)ELb(\d)E)?", fn)
+                          r"histogram_kernel|margin_split_kernel)"
+                          r"(?:IL[bi](\d)EL[bi](\d)E)?", fn)
             if m is None:
                 continue
             label = m.group(1) + (f"<{m.group(2)},{m.group(3)}>"
@@ -364,6 +382,21 @@ def ops_kernel_checks(torch, dev):
             d = (0.5 * x + rng.gamma(2.0, 0.2, n)).astype(np.float32)
             e, _ = check_histogram(torch, dev, x, d, buckets)
             errs["grid_histogram"] = max(errs["grid_histogram"], e)
+    # tile 1, unpadded: the rows after the last 4-row vector, and n_valid
+    # cutting into them
+    from repro_torch.kernels import grid_histogram, ref
+    from repro_torch.kernels.ops import histogram_operands
+    for n in (1, 3, 1_002, 100_001):
+        x = rng.normal(0, 3, n).astype(np.float32)
+        xt = torch.as_tensor(x, device=dev)
+        params = histogram_operands(x, x, buckets=16, device=dev)[2].clone()
+        for n_valid in (n, n - 1):
+            params[4] = float(n_valid)
+            errs["grid_histogram"] = max(errs["grid_histogram"], exact(
+                grid_histogram(xt, xt, params, buckets=16, tile=1),
+                ref.grid_histogram_ref(xt, xt, params, buckets=16),
+                f"grid_histogram (tile 1, n={n}, n_valid={n_valid})",
+                bits=True))
 
     # d on the unfused m*x + b, eps 0: every row with disp == 0 is an
     # inlier, and a fused multiply-add would flip the rows rounded apart
@@ -398,7 +431,8 @@ def ops_kernel_checks(torch, dev):
     say("kernel", f"range_scan_batch, range_scan == plain versions on 4 "
         f"cases (ragged N, 70 queries, tile 100, windows cutting tiles, "
         f"subnormal and ±inf bounds); grid_histogram == plain at 16/64/128 "
-        f"buckets x n 999/100,003; margin_split disp bitwise == plain on "
+        f"buckets x n 999/100,003 and unpadded at tile 1 for n 1/3/1,002/"
+        f"100,001 (n % 4 rows binned by scalar loads); margin_split disp bitwise == plain on "
         f"{apart:,} rows where fused and unfused m*x+b round apart (all "
         f"{n_split:,} rows inliers at eps 0); at n = "
         f"{big:,} both drop row {big - 1:,} (histogram counted {h_rows:,}; "
@@ -486,15 +520,17 @@ def main_phase(torch, dev, cfg):
         f"(cut from the paper's {PAPER_ROWS:,} for host build time), built "
         f"in {build_s:.1f} s; {srv.waves_drained} waves of {wave} "
         f"({len(rects)} knn queries), writes between waves (delta "
-        f"{delta_rows} rows, {tombstones} tombstones), compaction "
-        f"{compact_s:.1f} s -> epoch {idx.epoch}; every answer == host "
-        f"path ({hits:,} hits); fused_scan launches {launches}, dispatches "
+        f"{delta_rows} rows, {tombstones} tombstones; wave latency p50 "
+        f"{before['wave_p50_ms']:.2f} ms p99 {before['wave_p99_ms']:.2f} ms), "
+        f"compaction {compact_s:.1f} s -> epoch {idx.epoch}; every answer == "
+        f"host path ({hits:,} hits); fused_scan launches {launches}, dispatches "
         f"{dstats['dispatches']}, fallbacks {fallbacks}, hit_overflows "
         f"{overflows} (hit_cap {plan.hit_cap:,}; most hits of one query "
         f"{max_hits:,}); resident images {resident / 2**20:.1f} MiB, peak "
         f"device memory {peak / 2**20:.1f} MiB; default device options")
     return dict(idx=idx, rects=rects, launches=launches, srv=srv,
-                drain_s=drain_s, stats=after, plan=plan, data=ds.data)
+                drain_s=drain_s, stats=after, plan=plan, data=ds.data,
+                rows=cfg["rows"], compact_s=compact_s)
 
 
 def segment_inputs(idx, plan, rects):
@@ -636,6 +672,32 @@ def bound(nbytes, ops):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+# each ops kernel's name in a profiler trace
+KERNEL_EVENTS = dict(range_scan_batch=r"range_scan_batch_kernel",
+                     range_scan=r"range_scan_kernel",
+                     grid_histogram=r"histogram_kernel",
+                     margin_split=r"margin_split_kernel")
+
+
+def device_ms(torch, fn, pattern, reps):
+    """The kernel's own device time per call (torch.profiler, events whose
+    name matches ``pattern``) over ``reps`` calls after a warm-up; None
+    when the trace has no such event."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for evt in prof.key_averages():
+        if re.search(pattern, evt.key):
+            t = getattr(evt, "self_device_time_total", None)
+            us += getattr(evt, "self_cuda_time_total", 0.0) if t is None else t
+    return us / 1e3 / reps if us > 0 else None
+
+
 def ops_phase(torch, run, segs, cfg, dev):
     """The ``repro_torch.kernels`` entry points at the main path's size:
     one call of each with the launch counts set to 0 just before and read
@@ -740,6 +802,8 @@ def ops_phase(torch, run, segs, cfg, dev):
         }
         for name, (kern, plain) in timed.items():
             out[name]["ms"] = time_ms(torch, kern, reps)
+            out[name]["device_ms"] = device_ms(torch, kern,
+                                               KERNEL_EVENTS[name], reps)
             out[name]["plain_ms"] = time_ms(torch, plain, max(1, reps // 10))
         # the counting step alone, on the precomputed flat bucket index
         x_lo, inv_wx, d_lo, inv_wd, n_valid = h_ops[2][:5]
@@ -766,11 +830,16 @@ def ops_phase(torch, run, segs, cfg, dev):
         f"(max_abs_err {max(v['err'] for v in out.values())})")
     if dev != "cpu":
         say("ops", "; ".join(
-            f"{k} {v['ms']:.4f} ms (plain {v['plain_ms']:.3f} ms, bound "
-            f"{v['bound'][0]:.4g} ms by {v['bound'][1]})"
-            for k, v in out.items()) + f"; library_ms: none for each (no "
-            f"single PyTorch call computes these functions); {lib_note}")
+            f"{k} {v['ms']:.4f} ms (device {fmt_ms(v['device_ms'])}, plain "
+            f"{v['plain_ms']:.3f} ms, bound {v['bound'][0]:.4g} ms by "
+            f"{v['bound'][1]})" for k, v in out.items())
+            + f"; library_ms: none for each (no single PyTorch call computes "
+            f"these functions); {lib_note}")
     return out
+
+
+def fmt_ms(ms):
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def device_busy_share(torch, srv, rects):
@@ -918,6 +987,148 @@ def times_phase(torch, run, segs, cfg, card_line):
     return entry
 
 
+def pct(lat_s, q):
+    return float(np.percentile(np.asarray(lat_s) * 1e3, q)) if lat_s else 0.0
+
+
+def background_phase(torch, run, cfg, dev, card_line):
+    """The main phase's index, handed over with ``from_state`` (no refit)
+    under ``background_compact=True``, served through a pipelined
+    QueryServer while its next epoch builds on the compactor thread.
+
+    Nothing but the server touches the index while it serves, so the
+    epoch can only install inside ``srv.drain``, at a wave boundary.  Every
+    wave's answer is checked afterwards against a host twin: a second
+    index from the same state on the numpy host path, given the same
+    write batches up to that wave's write state."""
+    import copy
+    from repro_torch import obs
+    from repro_torch.core import COAXIndex
+    from repro_torch.data import make_airline
+    from repro_torch.engine import QueryServer, split_hits
+    from repro_torch.kernels import fused_scan
+    batch = cfg["inserts"] + cfg["deletes"]
+    state = run["idx"].state()
+    twin_state = copy.deepcopy(state)         # arrays of the twin's own
+    state["config"] = dict(state["config"], background_compact=True,
+                           compact_min_delta=BG_TRIGGER * batch,
+                           compact_delta_frac=1e-4)
+    t0 = time.perf_counter()
+    idx = COAXIndex.from_state(state, device=dev)
+    load_s = time.perf_counter() - t0
+    epoch0, delta0 = idx.epoch, idx.delta_rows
+    rects, wave = run["rects"], cfg["wave"]
+    srv = QueryServer(idx, max_batch=wave, device=dev)
+    rng = np.random.default_rng(4)
+    tracer = obs.enable_tracing(capacity=1 << 16)
+    lat = {}                 # (when, writes queued) -> wave latencies s
+    writes = []              # (insert write id, rows, deleted ids) a batch
+    served = []              # (write batches applied, rect indices, answers)
+    rounds = rounds_after = 0
+    install_round = None
+    deadline = time.perf_counter() + BG_WAIT_S
+    fused_scan.launches = 0                 # ---- this path's run ----
+    try:
+        while rounds_after < BG_AFTER:
+            building = idx.describe()["background"]["in_flight"]
+            wrote = len(writes) < BG_BATCHES and (not building
+                                                  or rounds % BG_EVERY == 0)
+            if wrote:                # applied at the drain's wave boundary
+                rows = make_airline(cfg["inserts"], seed=300 + len(writes)).data
+                ids = rng.choice(cfg["rows"], cfg["deletes"], replace=False)
+                writes.append((srv.insert(rows), rows, ids))
+                srv.delete(ids)
+            done = idx.background_compactions
+            sel = (2 * rounds * wave + np.arange(2 * wave)) % len(rects)
+            qids = srv.submit_many(rects[sel])    # two pipelined waves
+            got = srv.drain()
+            installed = idx.background_compactions > done
+            if installed:
+                install_round = rounds
+            # a build in flight at any point of the round: at its start, at
+            # its end, or started and installed inside it
+            key = ("during" if building or installed
+                   or idx.describe()["background"]["in_flight"]
+                   else "after" if done else "before")
+            lat.setdefault((key, wrote), []).extend(
+                w.latency_s for w in srv.executor.wave_stats[-2:])
+            served.append((len(writes), sel, [got[q] for q in qids]))
+            rounds += 1
+            if key == "after":
+                rounds_after += 1
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"no handoff within {BG_WAIT_S} s")
+        srv.close()
+        launches = fused_scan.launches      # ---- read right after ----
+    finally:
+        obs.disable_tracing()
+    spans = {e["name"]: e for e in tracer.events()
+             if e["name"].startswith("compact.")}
+    if (idx.background_compactions != 1 or idx.epoch != epoch0 + 1
+            or install_round is None):
+        raise AssertionError(f"handoffs {idx.background_compactions}, "
+                             f"epoch {epoch0} -> {idx.epoch}, installed in "
+                             f"a drain: {install_round is not None}")
+    during = sum(len(v) for (k, _), v in lat.items() if k == "during")
+    if not during or dev != "cpu" and launches <= 0:
+        raise AssertionError(f"{during} waves during the build, "
+                             f"{launches} fused_scan launches")
+
+    # every wave against the host twin at that wave's write state
+    t_c = time.perf_counter()
+    twin = COAXIndex.from_state(twin_state, backend="numpy", device="cpu")
+    applied = hits = checked = 0
+    for s in sorted({rec[0] for rec in served}):
+        for wid, rows, ids in writes[applied:s]:
+            if not np.array_equal(twin.insert(rows), srv.write_results[wid]):
+                raise AssertionError(f"write batch {applied}: row ids differ")
+            twin.delete(ids)
+            applied += 1
+        recs = [rec for rec in served if rec[0] == s]
+        union = np.unique(np.concatenate([rec[1] for rec in recs]))
+        q, r = twin.query_batch(rects[union])
+        want = dict(zip(union.tolist(), split_hits(q, r, union.size)))
+        for _, sel, answers in recs:
+            for k, a in zip(sel.tolist(), answers):
+                if a.dtype != np.int64 or not np.array_equal(a, want[k]):
+                    raise AssertionError(f"write state {s}, rect {k}: "
+                                         f"device answer != host answer")
+                hits += a.size
+                checked += 1
+    check_s = time.perf_counter() - t_c
+    build = spans["compact.build"]
+    tail = spans["compact.tail_replay"]["args"]["ops"]
+    say("background", f"from_state of the main index ({run['rows']:,} base "
+        f"rows, delta {delta0:,}) in {load_s:.1f} s, size trigger "
+        f"{BG_TRIGGER * batch:,} delta entries; {rounds} rounds of 2 "
+        f"pipelined waves of {wave}, {len(writes)} write batches of "
+        f"{cfg['inserts']:,} inserts + {cfg['deletes']} deletes (one a "
+        f"round outside the build, one every {BG_EVERY} rounds during it); "
+        f"waves (rounds with a write batch | reads only): "
+        + "; ".join(f"{label} {fmt_lat(lat.get((k, True)))} | "
+                    f"{fmt_lat(lat.get((k, False)))}" for k, label in (
+                        ("before", "before the build"), ("during", "during it"),
+                        ("after", "after the install")))
+        + f"; build on the compactor thread "
+        f"{build['t1'] - build['t0']:.2f} s ({build['args']['rows']:,} "
+        f"rows), build start -> install {idx.last_handoff_s:.2f} s, "
+        f"installed inside round {install_round}'s srv.drain at a wave "
+        f"boundary, tail replayed {tail} ops; epoch {epoch0} -> {idx.epoch}, "
+        f"background compactions {idx.background_compactions}; fused_scan "
+        f"launches {launches}; every one of the {checked:,} answers == the "
+        f"host twin's at its write state ({hits:,} hits, checked after "
+        f"serving in {check_s:.1f} s); the main phase's synchronous "
+        f"compaction {run['compact_s']:.2f} s; card {card_line}")
+
+
+def fmt_lat(lat_s):
+    """Count, p50, p99 and max of wave latencies in ms."""
+    if not lat_s:
+        return "none"
+    return (f"{len(lat_s)} (p50 {pct(lat_s, 50):.2f} ms, p99 "
+            f"{pct(lat_s, 99):.2f} ms, max {max(lat_s) * 1e3:.2f} ms)")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rehearse", action="store_true",
@@ -937,6 +1148,7 @@ def main(argv=None) -> int:
         run = main_phase(torch, "cpu", REHEARSE)
         segs = segments_phase(torch, run, REHEARSE, "cpu")
         ops_phase(torch, run, segs, REHEARSE, "cpu")
+        background_phase(torch, run, REHEARSE, "cpu", "no card")
         print("chip_smoke: rehearsal on the CPU finished; no card, no "
               "result", file=sys.stderr)
         return 3
@@ -951,6 +1163,7 @@ def main(argv=None) -> int:
     segs = segments_phase(torch, run, cfg, "cuda")
     ops = ops_phase(torch, run, segs, cfg, "cuda")
     entry = times_phase(torch, run, segs, cfg, card_line)
+    background_phase(torch, run, cfg, "cuda", card_line)
     kernels = [{
         "name": "fused_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fused_scan.cu",

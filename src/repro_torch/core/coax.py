@@ -28,17 +28,26 @@ sufficient statistics (§5: 'continuously adjust our existing model').
 fires automatically on delta size, or on drift when the §7.2 predictability
 ratio (``theory.met_drifted_expectation``) says the frozen slopes have
 decayed.  Trigger evaluation is amortized (every ``compact_check_rows``
-written rows or on an L0 spill — ``maybe_compact``) and the rebuild runs
-synchronously (``compact``).
+written rows or on an L0 spill — ``maybe_compact``), and with
+``background_compact`` the rebuild itself moves off the serving thread:
+``_begin_background_compact`` freezes the live row set and builds the next
+epoch on a daemon thread while the old epoch keeps serving; ``poll_handoff``
+installs the finished build at the next write/query/wave boundary and
+replays the writes admitted during the build into the new epoch (the
+epoch-handoff state machine, DESIGN.md §5.4).  The build thread runs numpy
+only: the new epoch's device images upload lazily, on the serving thread,
+at its first device wave (``_device_plan_obj``).
 
-Not in this package yet: the background build with its epoch handoff
-(``background_compact=True`` raises), durability (``save``/``restore``/
-WAL), the semantic result cache and pinned-epoch reads.  The state of an
-index fitted elsewhere comes in through ``COAXIndex.from_state``.
+Not in this package yet: durability (``save``/``restore``/WAL, and with it
+the handoff's WAL rotation and its crash recovery), the semantic result
+cache and pinned-epoch reads, and the sharded plane.  The state of an index
+fitted elsewhere comes in through ``COAXIndex.from_state``, and ``state``
+hands it out.
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -110,9 +119,6 @@ class COAXIndex:
         (defaults to ``arange(N)``); a scratch rebuild of a mutated index
         passes the surviving ids here so result sets stay comparable.
         """
-        if config.background_compact:
-            raise NotImplementedError(
-                "background compaction is not ported yet")
         self.config = config
         self.data = np.ascontiguousarray(data, dtype=np.float32)
         self.n_dims = self.data.shape[1]
@@ -137,11 +143,18 @@ class COAXIndex:
         self.backend = backend
 
     def _init_write_state(self) -> None:
-        """Amortized-trigger counters (DESIGN.md §5.3), fresh — shared by
-        build and ``from_state``."""
+        """Amortized-trigger counters + background-handoff machinery
+        (DESIGN.md §5.3–§5.4), fresh — shared by build and ``from_state``."""
         self._write_units = 0           # rows written since the last check
         self._spill_pending = False     # an L0 spill since the last check
         self.trigger_checks = 0         # full trigger evaluations ever run
+        self.background_compactions = 0  # handoffs installed
+        self.last_handoff_s = 0.0       # build-start → install latency
+        self._handoff_t0 = 0.0
+        self._handoff_thread = None     # the in-flight compactor thread
+        self._handoff_result = None     # [None] | [("ok", fitted, relearned)]
+        self._handoff_ops = None        # writes admitted during the build
+        self._in_handoff_replay = False
         self._last_compact_relearned = False
         self._viol_total = {}           # per-group arriving-row counts and
         self._viol_bad = {}             # margin violations since tracker reseed
@@ -354,6 +367,7 @@ class COAXIndex:
         caller is responsible for never reusing an id.  Default: the index's
         own ``arange`` sequence.
         """
+        self._poll_entry()
         rows = np.ascontiguousarray(np.atleast_2d(np.asarray(rows, dtype=np.float32)))
         if rows.ndim != 2 or rows.shape[1] != self.n_dims:
             raise ValueError(f"rows must be (m, {self.n_dims}), got {rows.shape}")
@@ -369,6 +383,10 @@ class COAXIndex:
                 self._next_id = max(self._next_id, int(ids.max()) + 1)
         if m == 0:
             return ids
+        if self._handoff_ops is not None and not self._in_handoff_replay:
+            # a background build is in flight: remember the op so the new
+            # epoch can replay it after the handoff (DESIGN.md §5.4)
+            self._handoff_ops.append(("i", rows, ids.copy()))
         inlier = np.ones(m, dtype=bool)
         for gi, g in enumerate(self.groups):
             gm = g.inlier_mask(rows)
@@ -410,9 +428,12 @@ class COAXIndex:
         matching plane (so each sub-index's hits are masked by exactly its
         own plane).  Unknown or already-dead ids are ignored.
         """
+        self._poll_entry()
         ids = np.unique(np.asarray(row_ids, dtype=np.int64).reshape(-1))
         if ids.size == 0:
             return 0
+        if self._handoff_ops is not None and not self._in_handoff_replay:
+            self._handoff_ops.append(("d", ids.copy()))
         self._write_units += int(ids.size)
         removed = 0
         absorbed = self.delta_primary.tombstone_log(ids)
@@ -491,8 +512,16 @@ class COAXIndex:
           least ``drift_min_delta`` of fresh delta evidence (the relearn
           path: compaction re-runs ``learn_soft_fds``).
 
-        A fired trigger compacts synchronously.
+        With ``background_compact`` a fired trigger starts a §5.4
+        background build instead of compacting synchronously — except
+        during the handoff tail replay, which compacts SYNCHRONOUSLY: the
+        replay must land on the state a single-threaded run of the same
+        ops would, so a trigger firing mid-replay fires exactly where the
+        sync world fires it.
         """
+        if self._handoff_thread is not None:
+            # one build at a time: fold it in if done, else keep serving
+            return self.poll_handoff()
         cfg = self.config
         if self._write_units < cfg.compact_check_rows and not self._spill_pending:
             return False
@@ -506,8 +535,130 @@ class COAXIndex:
                          and self.drift_predictability() < cfg.drift_threshold)
         if not (size_trigger or drift_trigger):
             return False
+        if cfg.background_compact and not self._in_handoff_replay:
+            self._begin_background_compact(relearn=drift_trigger or None)
+            return True
         self.compact(relearn=drift_trigger or None)
         return True
+
+    # ------------------------------------------------------------------ #
+    # Background compaction + epoch handoff (DESIGN.md §5.4)
+    # ------------------------------------------------------------------ #
+    def _poll_entry(self) -> None:
+        """Cheap per-call handoff check at write/query entry points."""
+        if self._handoff_thread is not None:
+            self.poll_handoff()
+
+    def _begin_background_compact(self, relearn: Optional[bool]) -> None:
+        """Kick off the §5.4 background build: freeze the live row set,
+        decide the relearn flag NOW (from the serving thread's trackers),
+        and hand the pure ``_fit_state`` to a daemon thread.  The old epoch
+        keeps serving; writes admitted during the build land in its delta
+        planes AND are recorded for the post-handoff tail replay.  The
+        thread runs numpy only and never touches torch: the new epoch's
+        device plan is built on the serving thread after the install."""
+        with obs.span("compact.freeze", epoch=self.epoch):
+            rows, ids = self.live_rows()       # the frozen build input
+            data = np.ascontiguousarray(rows, dtype=np.float32)
+            row_ids = np.asarray(ids, dtype=np.int64).copy()
+        if relearn is None:
+            relearn = self.drift_predictability() < self.config.drift_threshold
+        relearned = bool(relearn) and data.shape[0] >= 64
+        epoch = self.epoch + 1
+        groups_in = list(self.groups)
+        cfg = self.config
+        result = [None]
+        # the build span is opened HERE (serving thread, implicit parent)
+        # and finished by the builder thread — the §10.2 cross-thread case
+        tr = obs.tracer()
+        bsp = tr.start("compact.build", rows=int(data.shape[0]),
+                       epoch=epoch, relearn=relearned) if tr else None
+
+        def _build():
+            try:
+                groups = (learn_soft_fds(data, cfg.softfd)
+                          if relearned else groups_in)
+                result[0] = ("ok",
+                             self._fit_state(data, row_ids, groups, epoch),
+                             relearned)
+            except BaseException as e:         # surfaced at the next poll
+                result[0] = ("err", e)
+            finally:
+                if bsp is not None:
+                    tr.finish(bsp)
+
+        self._handoff_ops = []
+        self._handoff_result = result
+        self._handoff_t0 = time.perf_counter()
+        t = threading.Thread(target=_build, name="coax-compactor", daemon=True)
+        self._handoff_thread = t
+        t.start()
+
+    def poll_handoff(self, wait: bool = False) -> bool:
+        """Fold a finished background build into the serving state — the
+        atomic epoch handoff (DESIGN.md §5.4).  Called at every write/query
+        entry and at wave boundaries; ``wait=True`` blocks for an in-flight
+        build (``finish_handoff`` — the graceful-shutdown join).  Returns
+        True iff a handoff was installed.  SERVING THREAD ONLY: installation
+        swaps the grids the next wave is answered from.
+
+        Install order: adopt the built epoch, reset the amortized-trigger
+        counters, then replay the recorded tail through the ordinary write
+        paths (a trigger firing inside the replay compacts synchronously).
+        """
+        t = self._handoff_thread
+        if t is None:
+            return False
+        if not wait and t.is_alive():
+            return False
+        t.join()
+        self._handoff_thread = None
+        status = self._handoff_result[0] if self._handoff_result else None
+        self._handoff_result = None
+        ops, self._handoff_ops = (self._handoff_ops or []), None
+        if status is None or status[0] == "err":
+            err = status[1] if status else None
+            raise RuntimeError("background compaction failed") from err
+        _, fitted, relearned = status
+        bk = self.backend
+        with obs.span("compact.install", epoch=self.epoch + 1):
+            self._install_fit(fitted)  # atomic swap: new epoch serves next
+        self.compactions += 1
+        self.backend = bk
+        self._last_compact_relearned = relearned
+        # Counter convergence with the synchronous world: a sync compaction
+        # at the trigger leaves ``write_units`` at 0 and the tail ops then
+        # tick the ordinary check schedule.  Resetting here and replaying
+        # the tail WITH live counters lands the amortized-trigger phase
+        # exactly where the sync world lands it, so future trigger timing
+        # agrees.
+        self._write_units = 0
+        self._spill_pending = False
+        self._in_handoff_replay = True
+        try:
+            with obs.span("compact.tail_replay", ops=len(ops)):
+                for op in ops:
+                    if op[0] == "i":
+                        self.insert(op[1], ids=op[2])
+                    else:
+                        self.delete(op[1])
+        finally:
+            self._in_handoff_replay = False
+        self.background_compactions += 1
+        self.last_handoff_s = time.perf_counter() - self._handoff_t0
+        g = obs.get_registry()
+        g.counter("coax_compactions_total", "epoch rebuilds installed",
+                  ("mode",)).inc(mode="background")
+        g.histogram("coax_handoff_seconds",
+                    "background build start -> tail replayed").observe(
+                        self.last_handoff_s)
+        return True
+
+    def finish_handoff(self) -> bool:
+        """Block until any in-flight background build is installed —
+        called before a synchronous ``compact()`` and at
+        ``QueryServer.close`` (the §8.1 graceful-shutdown join)."""
+        return self.poll_handoff(wait=True)
 
     def live_rows(self) -> Tuple[np.ndarray, np.ndarray]:
         """(rows, ids) of every live row: snapshot survivors + delta logs —
@@ -534,7 +685,10 @@ class COAXIndex:
         the epoch — which is what invalidates any frozen ``DevicePlan``:
         the rebuilt ``GridFile``s carry the new epoch and lazily build fresh
         plans on first device use (DESIGN.md §5 invalidation contract).
+        Any in-flight background build is folded in first, so explicit
+        compaction composes with the §5.4 handoff machinery.
         """
+        self.poll_handoff(wait=True)   # fold an in-flight handoff first
         if relearn is None:
             relearn = self.drift_predictability() < self.config.drift_threshold
         t0 = time.perf_counter()
@@ -580,6 +734,40 @@ class COAXIndex:
         return [(gi, dep) for gi, g in enumerate(self.groups)
                 for dep in g.dependents]
 
+    def state(self) -> dict:
+        """This index as the plain data ``from_state`` takes (arrays are
+        the live ones, not copies).  An in-flight background build is
+        folded in first, so the state is one whole epoch."""
+        self.finish_handoff()
+        keys = self._tracker_keys()
+        n_groups = range(len(self.groups))
+        return {
+            "data": self.data, "row_ids": self.row_ids,
+            "next_id": self._next_id, "epoch": self.epoch,
+            "compactions": self.compactions,
+            "primary_ratio": self.primary_ratio,
+            "config": dataclasses.asdict(self.config),
+            "groups": [{"predictor": g.predictor,
+                        "dependents": list(g.dependents),
+                        "models": {d: dataclasses.astuple(m)
+                                   for d, m in g.models.items()}}
+                       for g in self.groups],
+            "primary": self.primary.state_dict(),
+            "outlier": self.outlier.state_dict(),
+            "outlier_lo": self._outlier_lo, "outlier_hi": self._outlier_hi,
+            "delta_primary": self.delta_primary.state_dict(),
+            "delta_outlier": self.delta_outlier.state_dict(),
+            "write_units": self._write_units,
+            "spill_pending": self._spill_pending,
+            "trigger_checks": self.trigger_checks,
+            "tracker_xtx": [self._fd_trackers[k].xtx for k in keys],
+            "tracker_xty": [self._fd_trackers[k].xty for k in keys],
+            "tracker_lam": [self._fd_trackers[k].lam for k in keys],
+            "x_scale": [self._x_scale[gi] for gi in n_groups],
+            "viol_total": [self._viol_total[gi] for gi in n_groups],
+            "viol_bad": [self._viol_bad[gi] for gi in n_groups],
+        }
+
     @classmethod
     def from_state(cls, state: dict, backend: str = "device",
                    device_opts: Optional[dict] = None,
@@ -604,9 +792,6 @@ class COAXIndex:
         cfg = dict(state["config"])
         cfg["softfd"] = SoftFDConfig(**cfg["softfd"])
         config = CoaxConfig(**cfg)
-        if config.background_compact:
-            raise NotImplementedError(
-                "background compaction is not ported yet")
         idx = cls.__new__(cls)
         idx.config = config
         idx.data = np.ascontiguousarray(state["data"], dtype=np.float32)
@@ -669,6 +854,7 @@ class COAXIndex:
         return translate_rect(rect, self.groups, self.keep_dims)
 
     def query(self, rect: Rect) -> np.ndarray:
+        self._poll_entry()
         rect = np.asarray(rect, dtype=np.float64)
         nav = self.translate(rect)
         hits = [self.primary.query(nav, rect)]
@@ -710,6 +896,7 @@ class COAXIndex:
         host path.  Either way the answer is bit-identical to the numpy
         backend.
         """
+        self._poll_entry()
         rects = np.asarray(rects, dtype=np.float64)
         b = rects.shape[0]
         if b == 0:
@@ -797,7 +984,10 @@ class COAXIndex:
         Waves the plan cannot serve (``cell_cap`` overflow, CPU route only)
         are answered synchronously here by the host path, so the handle ALWAYS reflects
         this submit's snapshot+delta state even if writes land before
-        collection (per-wave snapshot semantics)."""
+        collection (per-wave snapshot semantics).  A finished background
+        build is folded in HERE, before the wave's snapshot is captured —
+        wave-boundary handoff visibility (§5.4)."""
+        self._poll_entry()
         rects = np.asarray(rects, dtype=np.float64)
         if nav is None:
             nav = self.translate_batch(rects) if rects.shape[0] else None
@@ -883,6 +1073,12 @@ class COAXIndex:
             "compactions": self.compactions,
             "trigger_checks": self.trigger_checks,
             "write_units": self._write_units,
+            "background": {
+                "enabled": self.config.background_compact,
+                "in_flight": self._handoff_thread is not None,
+                "completed": self.background_compactions,
+                "last_handoff_s": self.last_handoff_s,
+            },
             "delta_primary": self.delta_primary.describe(),
             "delta_outlier": self.delta_outlier.describe(),
             "tombstones": self.tombstone_count,

@@ -261,9 +261,15 @@ class QueryServer:
         return self.shutdown is not None and self.shutdown.requested
 
     def close(self) -> None:
-        """Orderly exit: apply every queued write.  Idempotent, so signal
-        handlers and ``finally`` blocks can both call it."""
+        """Orderly exit: apply every queued write, then JOIN any in-flight
+        background compaction (installing its epoch — the §5.4 graceful-
+        shutdown contract: the compactor's work is never abandoned).
+        Idempotent, so signal handlers and ``finally`` blocks can both
+        call it."""
         self.flush_writes()
+        fh = getattr(self.executor.index, "finish_handoff", None)
+        if fh is not None:
+            fh()
         self.closed = True
 
     # ------------------------------------------------------------------ #

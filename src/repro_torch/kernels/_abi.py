@@ -48,6 +48,13 @@ def check(t, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def aligned(t):
+    """``t``, or a fresh copy when its data is not 16-byte aligned (kernels
+    that read whole rows or planes as 16-byte vectors need the start on a
+    16-byte boundary)."""
+    return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
+
+
 def launch(kernel: str, fn: str, argtypes, device, *args) -> None:
     """Call ``fn`` of ``kernel`` with ``args`` (tensors pass their data
     pointers) on ``device``'s current stream; raise if the launch fails."""

@@ -33,7 +33,7 @@ from typing import NamedTuple
 import torch
 
 from . import ref
-from ._abi import SMEM_LIMIT, VP, I, check, launch
+from ._abi import SMEM_LIMIT, VP, I, aligned, check, launch
 
 DEFAULT_TILE = 512
 DEFAULT_HIT_CAP = 1024
@@ -115,12 +115,6 @@ def launch_plan(d: int, k: int, has_sort: bool, tile: int, n: int,
                       num_tiles, chunks, scratch, bp * (n // 32))
 
 
-def _aligned(t):
-    """``t``, or a fresh copy when its data is not 16-byte aligned (the
-    kernel's bulk copies read whole planes from 16-byte boundaries)."""
-    return t if t is None or t.data_ptr() % 16 == 0 else t.clone()
-
-
 def fused_scan(rows_t, flo_t, fhi_t, alive, coords=None, first=None,
                last=None, sv=None, tband=None, gidx=None, *,
                tile: int = DEFAULT_TILE, hit_cap: int = DEFAULT_HIT_CAP):
@@ -176,8 +170,8 @@ def fused_scan(rows_t, flo_t, fhi_t, alive, coords=None, first=None,
         check(tband, "tband", f32, (bp, 2), dev)
 
     plan = launch_plan(d, k, has_sort, tile, n, bp)
-    rows_t, alive, coords, sv = (_aligned(t) for t in (rows_t, alive, coords,
-                                                        sv))
+    rows_t, alive, coords, sv = (aligned(t) for t in (rows_t, alive, coords,
+                                                       sv))
     counts, scanned = torch.empty((2, bp, 1), dtype=i32, device=dev)
     # the scratch (its pair list first, 16-byte aligned), then the bitmap
     scratch = torch.empty(plan.scratch_words + plan.bitmap_words, dtype=i32,

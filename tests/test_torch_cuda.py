@@ -417,6 +417,86 @@ def test_row_id_test_above_2_24_on_the_card(cuda):
     assert int(mask[n - 1]) == 0 and -6.0 <= float(disp[n - 1]) <= 6.0
 
 
+def _hist_case(cuda, x, d, buckets):
+    ops_h = histogram_operands(x, d, buckets=buckets, device=cuda)
+    before = grid_histogram.launches
+    got = grid_histogram(*ops_h, buckets=buckets)
+    assert grid_histogram.launches == before + 1
+    want = ref.grid_histogram_ref(*ops_h, buckets=buckets)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    return got, ops_h
+
+
+def test_grid_histogram_every_row_in_one_bucket(cuda):
+    """The worst skew: every lane of every warp adds to one bin."""
+    n = 1_000_003
+    x = np.full(n, 7.5, np.float32)
+    got, _ = _hist_case(cuda, x, x.copy(), 64)
+    assert float(got[0, 0]) == n and int(got.double().sum()) == n
+
+
+def test_grid_histogram_128_buckets(cuda):
+    """64 KiB of bins a histogram: above the 48 KiB default limit."""
+    rng = np.random.default_rng(12)
+    x = rng.normal(0, 3, 300_001).astype(np.float32)
+    d = (0.5 * x + rng.gamma(2.0, 0.2, x.size)).astype(np.float32)
+    got, _ = _hist_case(cuda, x, d, 128)
+    assert int(got.double().sum()) == x.size
+
+
+def test_grid_histogram_drops_row_2_24(cuda):
+    n = 2 ** 24 + 1
+    rng = np.random.default_rng(9)
+    x = rng.uniform(0, 1_000, n).astype(np.float32)
+    d = (2 * x + 5 + rng.normal(0, 3, n)).astype(np.float32)
+    got, _ = _hist_case(cuda, x, d, 64)
+    assert int(got.double().sum()) == n - 1
+
+
+def test_grid_histogram_unaligned_views_and_repeat_calls(cuda):
+    """Operands whose data do not start on a 16-byte boundary are copied
+    by the wrapper; two calls give bit-identical output (the scratch is
+    left zeroed), one launch counted per call."""
+    rng = np.random.default_rng(13)
+    n = 65_536
+    x = rng.normal(0, 3, n + 1).astype(np.float32)
+    d = (x + rng.normal(0, 1, n + 1)).astype(np.float32)
+    xs = torch.as_tensor(x, device=cuda)[1:]
+    ds = torch.as_tensor(d, device=cuda)[1:]
+    assert xs.data_ptr() % 16 and ds.data_ptr() % 16
+    _, ops_h = _hist_case(cuda, x[1:], d[1:], 32)
+    params = ops_h[2]
+    before = grid_histogram.launches
+    got = grid_histogram(xs, ds, params, buckets=32)
+    again = grid_histogram(xs, ds, params, buckets=32)
+    assert grid_histogram.launches == before + 2
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    want = ref.grid_histogram_ref(xs, ds, params, buckets=32)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("n", [1, 3, 999, 1_000_003])
+@pytest.mark.parametrize("cut", [0, 2])
+def test_grid_histogram_rows_after_the_last_vector(cuda, n, cut):
+    """Any N with tile=1: the n % 4 rows after the last whole 4-row vector
+    are binned by scalar loads, and ``n_valid`` below n (``cut`` rows
+    dropped) reaches into them, as on the CPU route."""
+    rng = np.random.default_rng(n + cut)
+    x = rng.normal(0, 3, n).astype(np.float32)
+    d = (0.5 * x + rng.gamma(2.0, 0.2, n)).astype(np.float32)
+    params = histogram_operands(x, d, buckets=16, device=cuda)[2].clone()
+    params[4] = float(max(n - cut, 0))
+    xt, dt = (torch.as_tensor(a, device=cuda) for a in (x, d))
+    before = grid_histogram.launches
+    got = grid_histogram(xt, dt, params, buckets=16, tile=1)
+    assert grid_histogram.launches == before + 1
+    want = grid_histogram(xt.cpu(), dt.cpu(), params.cpu(), buckets=16,
+                          tile=1)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+    assert int(got.double().sum()) == max(n - cut, 0)
+
+
 def test_new_wrappers_reject_what_the_kernels_do_not_take(cuda):
     rows = torch.zeros((2, 512), device=cuda)
     lo = torch.zeros(2, device=cuda)

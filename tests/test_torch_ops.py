@@ -28,7 +28,8 @@ from repro_torch.core import LinearModel
 from repro_torch.kernels import (bucket_histogram, grid_histogram,
                                  margin_split, range_scan, range_scan_batch,
                                  range_scan_batch_query, range_scan_query,
-                                 split_by_margin)
+                                 ref, split_by_margin)
+from repro_torch.kernels.grid_histogram import kept_prefix
 
 ROUTES = {"pallas": dict(use_pallas=True, interpret=True),
           "jnp": dict(use_pallas=False)}
@@ -264,6 +265,30 @@ def test_split_by_margin_drops_row_2_24_as_the_reference():
     assert not in_p[-1] and not in_r[-1]      # dropped by the row-id test
 
 
+@pytest.mark.parametrize("centre", [2 ** 24, 2 ** 25, 20_000_000])
+def test_kept_prefix_equals_the_float32_row_id_test(centre):
+    """The redesigned kernel keeps rows ``[0, P)`` with ``P`` from
+    ``kept_prefix``; that is exactly the rows whose float32 id is below
+    ``n_valid`` (numpy's round-to-nearest-even), for the ops contract's
+    ``n_valid = float32(n)`` and for thresholds one ulp either side, off
+    the integers and out of range."""
+    ids = np.arange(centre + 4, dtype=np.int64).astype(np.float32)
+    for n in range(centre - 3, centre + 4):
+        f = np.float32(n)
+        for n_valid in (f, np.nextafter(f, np.float32(0)),
+                        np.nextafter(f, np.float32(np.inf)),
+                        np.float32(n - 0.5), np.float32(centre / 2 + 0.25),
+                        np.float32(0), np.float32(-1), np.float32(np.inf),
+                        np.float32(np.nan)):
+            kept = ids[:n] < n_valid
+            p = kept_prefix(n, n_valid)
+            assert kept[:p].all() and not kept[p:].any(), (n, n_valid)
+    # the plain version's row-id test keeps the same count
+    n = centre + 1
+    valid = ref._valid_rows(n, torch.tensor(np.float32(n)), "cpu")
+    assert int(valid.sum()) == kept_prefix(n, np.float32(n))
+
+
 # ---- routing ----------------------------------------------------------------
 
 def test_wrappers_on_cpu_run_the_plain_versions():
@@ -301,3 +326,28 @@ def test_wrappers_refuse_other_devices_and_ragged_inputs():
         margin_split(cpu[0], cpu[1], params, tile=256)
     with pytest.raises(ValueError):             # bins beyond shared memory
         grid_histogram(cpu[0], cpu[1], params, buckets=300, tile=100)
+
+
+@pytest.mark.parametrize("n", [1, 3, 999])
+def test_grid_histogram_takes_any_n_with_tile_1(n):
+    """Both routes take the same inputs: any N that is a multiple of the
+    tile (the kernel bins the rows after its last 4-row vector by scalar
+    loads), and no N of 2^31 or more (int32 row ids)."""
+    rng = np.random.default_rng(n)
+    x = rng.normal(0, 3, n).astype(np.float32)
+    d = (x + rng.normal(0, 1, n)).astype(np.float32)
+    lo_x, lo_d = float(x.min()), float(d.min())
+    w_x = max(float(x.max()) - lo_x, 1e-6) / 8
+    w_d = max(float(d.max()) - lo_d, 1e-6) / 8
+    params = torch.tensor([lo_x, 1 / w_x, lo_d, 1 / w_d, n, 0, 0, 0],
+                          dtype=torch.float32)
+    got = _np(grid_histogram(torch.from_numpy(x), torch.from_numpy(d),
+                             params, buckets=8, tile=1))
+    p = params.numpy()
+    ix = np.clip((x - p[0]) * p[1], 0, 7).astype(np.int64)
+    jd = np.clip((d - p[2]) * p[3], 0, 7).astype(np.int64)
+    want = np.bincount(ix * 8 + jd, minlength=64).reshape(8, 8)
+    np.testing.assert_array_equal(got, want.astype(np.float32))
+    huge = torch.zeros(1).expand(2 ** 31)        # a view: nothing allocated
+    with pytest.raises(ValueError):
+        grid_histogram(huge, huge, params, buckets=8, tile=1)
