@@ -86,6 +86,9 @@ REHEARSE = dict(rows=200_000, queries=64, wave=16, knn=64, sample_cap=20_000,
 # no nested synchronous compaction.  During the build a batch goes in every
 # BG_EVERY rounds of two waves; BG_AFTER rounds are served after the install
 BG_BATCHES, BG_TRIGGER, BG_EVERY, BG_AFTER, BG_WAIT_S = 14, 8, 2, 8, 900
+# the cache phase's byte budget and hot-rect pool; the sharded phase's shard
+# count; the durable phase's waves (a checkpoint every 4, a rotation after 4)
+CACHE_BYTES, CACHE_HOT, SHARDS, DURABLE_WAVES = 256 << 20, 16, 4, 8
 PAPER_ROWS = 80_000_000       # the paper's airline table
 PASSES = r"count_pass|scan_pass|expand_pass"     # fused_scan's kernels
 
@@ -513,8 +516,7 @@ def main_phase(torch, dev, cfg):
         raise AssertionError(f"{dstats['dispatches']} dispatches for "
                              f"{srv.waves_drained} device waves")
     plan = idx._coax_plan
-    resident = sum(img.bytes_resident for img in (plan.p_img, plan.o_img)
-                   if img is not None)
+    resident = plan_bytes(plan)
     peak = torch.cuda.max_memory_allocated() if dev != "cpu" else 0
     say("main", f"airline {cfg['rows']:,} rows x {ds.data.shape[1]} dims "
         f"(cut from the paper's {PAPER_ROWS:,} for host build time), built "
@@ -1000,8 +1002,19 @@ def background_phase(torch, run, cfg, dev, card_line):
     epoch can only install inside ``srv.drain``, at a wave boundary.  Every
     wave's answer is checked afterwards against a host twin: a second
     index from the same state on the numpy host path, given the same
-    write batches up to that wave's write state."""
+    write batches up to that wave's write state.
+
+    One round before the build fires (before the 8th write batch is
+    queued) the served index is pinned (``srv.pin_epoch``), and the pin's
+    answers to the previous round's rects, taken then, must equal what
+    that round served; after the install the pin, on the old epoch, must
+    still give them bit for bit.  Both pinned reads are waves of the
+    pinned device plan: each must launch ``fused_scan``, counted around
+    that read alone (the served rounds' count leaves them out).  Peak
+    device memory is read with the pin held across the install (both
+    epochs' images resident)."""
     import copy
+    import gc
     from repro_torch import obs
     from repro_torch.core import COAXIndex
     from repro_torch.data import make_airline
@@ -1026,11 +1039,17 @@ def background_phase(torch, run, cfg, dev, card_line):
     served = []              # (write batches applied, rect indices, answers)
     rounds = rounds_after = 0
     install_round = None
+    pin = None               # (pin, round, rect indices, answers at pin
+    pin_launches = 0         # time, its launches): the pinned read's own
     deadline = time.perf_counter() + BG_WAIT_S
     fused_scan.launches = 0                 # ---- this path's run ----
     try:
         while rounds_after < BG_AFTER:
             building = idx.describe()["background"]["in_flight"]
+            if (pin is None and not building and served
+                    and len(writes) == BG_TRIGGER - 1):
+                pin = pin_served(torch, srv, rects, served[-1], rounds, dev)
+                pin_launches = pin[4]
             wrote = len(writes) < BG_BATCHES and (not building
                                                   or rounds % BG_EVERY == 0)
             if wrote:                # applied at the drain's wave boundary
@@ -1059,9 +1078,32 @@ def background_phase(torch, run, cfg, dev, card_line):
             if time.perf_counter() > deadline:
                 raise AssertionError(f"no handoff within {BG_WAIT_S} s")
         srv.close()
-        launches = fused_scan.launches      # ---- read right after ----
+        launches = fused_scan.launches - pin_launches  # -- read right after
     finally:
         obs.disable_tracing()
+    if pin is None:
+        raise AssertionError("the served index was never pinned")
+    handle, pin_round, pin_sel, pin_want, _ = pin
+    fused_scan.launches = 0                 # ---- the pinned read's run ----
+    again = handle.query_batch_split(rects[pin_sel])
+    pin_after = fused_scan.launches         # ---- read right after ----
+    for k, (a, w) in enumerate(zip(again, pin_want)):
+        if not np.array_equal(a, w):
+            raise AssertionError(f"pinned rect {k}: answer moved across "
+                                 f"the install")
+    if not handle.epoch < idx.epoch or idx.pinned_epochs != [handle.epoch]:
+        raise AssertionError(f"pinned epoch {handle.epoch}, served "
+                             f"{idx.epoch}, pins {idx.pinned_epochs}")
+    if dev != "cpu" and (pin_launches <= 0 or pin_after <= 0):
+        raise AssertionError(f"pinned reads launched fused_scan "
+                             f"{pin_launches} / {pin_after} times")
+    peak_pin = torch.cuda.max_memory_allocated() if dev != "cpu" else 0
+    held = torch.cuda.memory_allocated() if dev != "cpu" else 0
+    handle.release()
+    gc.collect()
+    freed = held - torch.cuda.memory_allocated() if dev != "cpu" else 0
+    if idx.pinned_epochs:
+        raise AssertionError(f"pins left after release: {idx.pinned_epochs}")
     spans = {e["name"]: e for e in tracer.events()
              if e["name"].startswith("compact.")}
     if (idx.background_compactions != 1 or idx.epoch != epoch0 + 1
@@ -1118,7 +1160,404 @@ def background_phase(torch, run, cfg, dev, card_line):
         f"launches {launches}; every one of the {checked:,} answers == the "
         f"host twin's at its write state ({hits:,} hits, checked after "
         f"serving in {check_s:.1f} s); the main phase's synchronous "
-        f"compaction {run['compact_s']:.2f} s; card {card_line}")
+        f"compaction {run['compact_s']:.2f} s; pinned epoch {handle.epoch} "
+        f"(pinned before round {pin_round}, whose write batch fired the "
+        f"build) still answered round {pin_round - 1}'s {len(pin_sel)} rects "
+        f"bit for bit at served epoch {idx.epoch}, on the pinned device plan "
+        f"(fused_scan launches {pin_launches} at pin time, {pin_after} after "
+        f"the install, not in the count above); peak device memory with "
+        f"the pin held across the install {peak_pin / 2**20:.1f} MiB, "
+        f"released {freed / 2**20:.1f} MiB, pins left {idx.pinned_epochs}; "
+        f"card {card_line}")
+
+
+def pin_served(torch, srv, rects, last, rounds, dev):
+    """Pin the served index before round ``rounds``; its answers to the
+    previous round's rects must equal what that round served (no write
+    landed between).  Returns the pin, the round, the rect indices, the
+    pinned answers and the ``fused_scan`` launches of the pinned read.
+    Resets the peak-memory counter: the phase reads it with the pin held
+    across the install."""
+    from repro_torch.kernels import fused_scan
+    _, sel, answers = last
+    handle = srv.pin_epoch()
+    before = fused_scan.launches
+    got = handle.query_batch_split(rects[sel])
+    launches = fused_scan.launches - before
+    for k, (a, w) in enumerate(zip(got, answers)):
+        if not np.array_equal(a, w):
+            raise AssertionError(f"pin: rect {k} != the served answer")
+    if dev != "cpu":
+        torch.cuda.reset_peak_memory_stats()
+    return handle, rounds, sel, got, launches
+
+
+def zipf_rects(data, n, n_hot, alpha, nest_frac, seed, sample_cap):
+    """A Zipfian hot-rect stream (the script's own copy of the generator in
+    ``tests/workloads.py``): ``n`` draws from ``n_hot`` knn rects (k = 64)
+    under Zipf(``alpha``) popularity, repeats bit-identical to their pool
+    rect, a ``nest_frac`` share shrunk strictly inside it."""
+    from repro_torch.data import knn_rect_queries
+    rng = np.random.default_rng(seed)
+    pool = np.asarray(knn_rect_queries(data, n_hot, 64, seed=seed,
+                                       sample_cap=sample_cap), np.float64)
+    w = np.arange(1, n_hot + 1, dtype=np.float64) ** -float(alpha)
+    rects = pool[rng.choice(n_hot, size=n, p=w / w.sum())].copy()
+    nest = rng.random(n) < nest_frac
+    if nest.any():
+        sub = rects[nest]
+        width = sub[:, :, 1] - sub[:, :, 0]
+        lo_shrink = rng.uniform(0.0, 0.3, size=width.shape) * width
+        hi_shrink = rng.uniform(0.0, 0.3, size=width.shape) * width
+        sub[:, :, 0] = sub[:, :, 0] + lo_shrink
+        sub[:, :, 1] = np.maximum(sub[:, :, 1] - hi_shrink, sub[:, :, 0])
+        rects[nest] = sub
+    return rects
+
+
+def sync(torch, dev):
+    if dev != "cpu":
+        torch.cuda.synchronize()
+
+
+def same_answers(got, want, what):
+    for k, (a, w) in enumerate(zip(got, want)):
+        if a.dtype != np.int64 or not np.array_equal(a, w):
+            raise AssertionError(f"{what}: rect {k} differs")
+
+
+def cache_phase(torch, run, cfg, dev, card_line):
+    """The main index through ``QueryServer(..., cache_bytes=256 MiB)`` on
+    a Zipfian hot-rect stream: an uncached drain, a cold and a warm cached
+    drain, a write batch, one more cached drain; every answer equal to the
+    same index's uncached answer at the same write state (the first wave
+    also to the host path).  Only misses launch ``fused_scan``: each
+    drain's launches are counted around that drain alone; the cold and the
+    after-writes drains must launch, the warm drain must not.  One warm
+    wave is profiled (``cache_breakdown``)."""
+    from repro_torch.data import make_airline
+    from repro_torch.engine import QueryServer, split_hits
+    from repro_torch.kernels import fused_scan
+    idx, wave = run["idx"], cfg["wave"]
+    budget = CACHE_BYTES
+    rects = zipf_rects(run["data"], cfg["queries"], CACHE_HOT, 1.1, 0.25,
+                       seed=5, sample_cap=cfg["sample_cap"])
+    srv = QueryServer(idx, max_batch=wave, cache_bytes=budget, device=dev)
+    n_waves = -(-len(rects) // wave)
+    rows = []
+
+    def drain(label):
+        before = fused_scan.launches
+        qids = srv.submit_many(rects)
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        got = srv.drain()
+        sync(torch, dev)
+        secs = time.perf_counter() - t0
+        ws = srv.executor.wave_stats[-n_waves:]
+        hits = sum(w.cache_hits for w in ws)
+        part = sum(w.cache_partial for w in ws)
+        c = idx.cache
+        rows.append((label, hits, part, len(rects) - hits - part,
+                     len(rects) / secs, pct([w.latency_s for w in ws], 50),
+                     pct([w.latency_s for w in ws], 99),
+                     fused_scan.launches - before,
+                     c.nbytes if c is not None else 0,
+                     len(c) if c is not None else 0))
+        return [got[q] for q in qids]
+
+    idx.detach_cache()                       # the first drain: no cache
+    plain = drain("uncached")
+    check_wave(idx, rects[:wave], plain[:wave], split_hits)
+    idx.attach_cache(byte_budget=budget)
+    same_answers(drain("cold"), plain, "cold cached drain")
+    same_answers(drain("warm"), plain, "warm cached drain")
+    before = fused_scan.launches
+    prof = cache_breakdown(idx, rects[:wave])
+    if fused_scan.launches != before:
+        raise AssertionError("the profiled warm wave launched fused_scan")
+    rng = np.random.default_rng(7)
+    srv.insert(make_airline(cfg["inserts"], seed=700).data)
+    srv.delete(rng.choice(cfg["rows"], cfg["deletes"], replace=False))
+    after = drain("cached after writes")
+    desc = idx.cache.describe()
+    idx.detach_cache()                       # same write state, no cache
+    same_answers(after, drain("uncached after writes"), "cached after writes")
+    if rows[2][3]:
+        raise AssertionError(f"{rows[2][3]} misses in the warm drain")
+    cold, warm, written = (rows[k][7] for k in (1, 2, 3))
+    if dev != "cpu" and (cold <= 0 or warm != 0 or written <= 0):
+        raise AssertionError(f"cached drains launched fused_scan {cold} "
+                             f"(cold), {warm} (warm), {written} (after "
+                             f"writes): the misses must launch, hits not")
+    launches = cold + warm + written         # the cached drains' misses
+    say("cache", f"{len(rects)} Zipfian rects ({CACHE_HOT} hot knn rects, "
+        f"alpha 1.1, 25% nested) over the main index ({idx.n_rows:,} live "
+        f"rows) in waves of {wave}, cache budget {budget >> 20} MiB; per "
+        "drain (hits / partial / misses, QPS, wave p50 / p99 ms, fused_scan "
+        "launches, resident MiB / entries after): " + "; ".join(
+            f"{lab} {h} / {pa} / {mi}, {qps:.1f} QPS, {p50:.2f} / {p99:.2f}"
+            f", {ln} launches, {nb / 2**20:.1f} MiB / {ne}"
+            for lab, h, pa, mi, qps, p50, p99, ln, nb, ne in rows)
+        + f"; one warm wave of {wave} profiled: {prof}"
+        + f"; lifetime admissions {desc['admissions']}, evictions "
+        f"{desc['evictions']}, invalidations {desc['invalidations']}, "
+        f"rejections {desc['rejections']}; every answer == the uncached "
+        f"answer at its write state (first wave == host path); fused_scan "
+        f"launches of the cached drains (misses only) {launches}; card "
+        f"{card_line}")
+    return dict(launches=launches)
+
+
+def cache_breakdown(idx, rects):
+    """Where one warm cached wave (every rect answered from the cache)
+    spends host time, by cProfile: cumulative time in the lookup
+    (``lookup_wave``: exact hits and the containment scan), in the exact
+    filter of partial hits inside it (``rect_contains``), in the merge
+    back into the flat ``query_batch`` contract (``_merge_cached``; its own
+    time holds its native lexsort and concatenations), and the wall time
+    of the wave; profiling inflates Python-heavy code."""
+    import cProfile
+    import pstats
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    q, _ = idx.query_batch(rects)
+    prof.disable()
+    wall = time.perf_counter() - t0
+    cum = {"lookup_wave": 0.0, "rect_contains": 0.0, "_merge_cached": 0.0}
+    own = 0.0
+    for (_, _, fn), (_, _, tt, ct, _) in pstats.Stats(prof).stats.items():
+        if fn in cum:
+            cum[fn] += ct
+        if fn == "_merge_cached":
+            own += tt
+    return (f"wall {wall * 1e3:.1f} ms for {q.size:,} hits; lookup_wave "
+            f"{cum['lookup_wave'] * 1e3:.1f} ms (rect_contains, the partial "
+            f"hits' filter, {cum['rect_contains'] * 1e3:.1f} ms of it); "
+            f"_merge_cached {cum['_merge_cached'] * 1e3:.1f} ms ({own * 1e3:.1f}"
+            f" ms its own: lexsort, concatenations)")
+
+
+def plan_bytes(plan):
+    """Bytes of a COAX device plan's resident grid images."""
+    return sum(img.bytes_resident for img in (plan.p_img, plan.o_img)
+               if img is not None) if plan is not None else 0
+
+
+def sharded_phase(torch, run, cfg, dev, card_line):
+    """``QueryServer(idx, shards=4)`` over the main index's live rows (range
+    partitioning on dim 0): the 512 knn rects in waves of 64, a write batch
+    before each wave after the first, one ``compact()`` of the plane after
+    wave 4; every wave equal to the main index given the same writes (same
+    ids by construction) on the device path.  Launches are counted around
+    the plane's waves alone (``submit_many`` and ``drain``), never around
+    the single index's reference waves."""
+    from repro_torch.data import make_airline
+    from repro_torch.engine import QueryServer, split_hits
+    from repro_torch.kernels import fused_scan
+    idx, rects, wave = run["idx"], run["rects"], cfg["wave"]
+    if dev != "cpu":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    srv = QueryServer(idx, max_batch=wave, shards=SHARDS, device=dev)
+    build_s = time.perf_counter() - t0
+    plane = srv.executor.index
+    if plane.n_shards != SHARDS or plane._next_id != idx._next_id:
+        raise AssertionError("the plane did not take the index's live rows")
+    rng = np.random.default_rng(8)
+    compact_s = None
+    launches = 0
+    for w in range(len(rects) // wave):
+        if w:
+            rows = make_airline(cfg["inserts"], seed=800 + w).data
+            dead = rng.choice(cfg["rows"], cfg["deletes"], replace=False)
+            wid = srv.insert(rows)
+            srv.delete(dead)
+            ids = idx.insert(rows)
+            idx.delete(dead)
+        batch = rects[w * wave:(w + 1) * wave]
+        fused_scan.launches = 0              # ---- the plane's wave ----
+        qids = srv.submit_many(batch)
+        got = srv.drain()
+        sync(torch, dev)
+        launches += fused_scan.launches      # ---- read right after ----
+        if w and not np.array_equal(srv.write_results[wid], ids):
+            raise AssertionError(f"wave {w}: the plane assigned other ids")
+        q, r = idx.query_batch(batch)
+        same_answers([got[k] for k in qids], split_hits(q, r, len(batch)),
+                     f"sharded wave {w}")
+        if w == 3:
+            t_c = time.perf_counter()
+            plane.compact()
+            compact_s = time.perf_counter() - t_c
+    if dev != "cpu" and launches <= 0:
+        raise AssertionError("the sharded phase launched no fused_scan kernel")
+    st = srv.stats()
+    dispatched = sum(p["queries"] for p in st["per_shard"])
+    resident = sum(plan_bytes(s._coax_plan) for s in plane.shards)
+    peak = (torch.cuda.max_memory_allocated() - mem0) if dev != "cpu" else 0
+    groups = [[(g.predictor, list(g.dependents)) for g in s.groups]
+              for s in plane.shards]
+    say("sharded", f"{SHARDS} range shards on dim 0 of the main index's "
+        f"{sum(plane.shard_sizes()):,} live rows, built in {build_s:.1f} s; "
+        f"rows {plane.shard_sizes()}, learned groups {groups}; "
+        f"{st['waves']} waves of {wave} ({st['queries']} knn rects), a "
+        f"write batch ({cfg['inserts']:,} inserts + {cfg['deletes']} "
+        f"deletes) before each wave after the first, plane compaction "
+        f"{compact_s:.1f} s after wave 4 (shard epochs "
+        f"{[s.epoch for s in plane.shards]}); (rect, shard) pairs "
+        f"dispatched {dispatched}, pruned "
+        f"{SHARDS * st['queries'] - dispatched}; per shard queries "
+        f"{[p['queries'] for p in st['per_shard']]}, rows scanned "
+        f"{[p['rows_scanned'] for p in st['per_shard']]}; {st['qps']:.1f} "
+        f"QPS, wave p50 {st['wave_p50_ms']:.2f} ms p99 "
+        f"{st['wave_p99_ms']:.2f} ms (synchronous waves); fused_scan "
+        f"launches {launches}; every wave == the single index given the "
+        f"same writes; resident shard images {resident / 2**20:.1f} MiB, "
+        f"peak device memory above the phase's start "
+        f"{peak / 2**20:.1f} MiB; card {card_line}")
+    return dict(launches=launches)
+
+
+def durable_phase(torch, run, cfg, dev, card_line):
+    """The main index, handed over with ``from_state``, journaled under the
+    gitignored ``build/``: ``attach_durability(keep=2)``, a server with
+    ``checkpoint_every=4``, 8 waves each after a write batch, one
+    synchronous compaction (the WAL rotation) after wave 4, one more write
+    batch applied and fsynced at a wave boundary; then a crash (server and
+    index dropped, no ``close``) and ``QueryServer.recover``, whose first
+    wave and counters must equal a twin's that ran the same ops with no
+    durability plane.  The journaled server's waves and the recovered
+    server's first wave each count their own ``fused_scan`` launches, and
+    each must launch.  The directory is removed whatever happens."""
+    import shutil
+    directory = ROOT / "build" / "durable_smoke"
+    shutil.rmtree(directory, ignore_errors=True)
+    directory.mkdir(parents=True)
+    try:
+        return journaled_run(torch, run, cfg, dev, card_line, directory)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+
+
+def journaled_run(torch, run, cfg, dev, card_line, directory):
+    """The body of ``durable_phase`` inside its journal ``directory``."""
+    import copy
+    import gc
+    import shutil
+    from repro_torch import obs
+    from repro_torch.core import COAXIndex
+    from repro_torch.data import make_airline
+    from repro_torch.engine import QueryServer, split_hits
+    from repro_torch.kernels import fused_scan
+    free = shutil.disk_usage(directory).free
+    say("durable", f"free disk under {directory.relative_to(ROOT)}: "
+        f"{free / 2**30:.1f} GiB")
+    rects, wave = run["rects"], cfg["wave"]
+    state = run["idx"].state()
+    twin = COAXIndex.from_state(copy.deepcopy(state), device=dev)
+    idx = COAXIndex.from_state(state, device=dev)
+    tracer = obs.enable_tracing(capacity=1 << 16)
+    try:
+        t0 = time.perf_counter()
+        idx.attach_durability(directory, keep=2)
+        attach_s = time.perf_counter() - t0
+        snap_bytes = idx.durable.last_snapshot_bytes
+        srv = QueryServer(idx, max_batch=wave, checkpoint_every=4,
+                          device=dev)
+        rng = np.random.default_rng(9)
+
+        def write(seed):
+            rows = make_airline(cfg["inserts"], seed=seed).data
+            dead = rng.choice(cfg["rows"], cfg["deletes"], replace=False)
+            srv.insert(rows)
+            srv.delete(dead)
+            twin.insert(rows)
+            twin.delete(dead)
+
+        fused_scan.launches = 0              # ---- this path's run ----
+        served = 0
+        for w in range(DURABLE_WAVES):
+            write(900 + w)
+            fused_scan.launches = 0          # ---- the journaled wave ----
+            srv.submit_many(rects[(w * wave) % len(rects):][:wave])
+            srv.drain()
+            sync(torch, dev)
+            served += fused_scan.launches    # ---- read right after ----
+            if w == 3:                       # the WAL rotation
+                t_c = time.perf_counter()
+                idx.compact()
+                twin.compact()
+                both_compact_s = time.perf_counter() - t_c
+        write(990)                           # the tail the restart replays
+        srv.flush_writes()
+        idx.durable.sync()                   # a wave boundary's fsync
+        written = srv.checkpoints_written
+        wal_records = idx.durable.wal.next_seq
+        del srv, idx                         # the crash: no close()
+        gc.collect()
+        t0 = time.perf_counter()
+        rec_srv = QueryServer.recover(directory, max_batch=wave, device=dev)
+        restore_s = time.perf_counter() - t0
+        rec = rec_srv.executor.index
+        batch = rects[:wave]
+        fused_scan.launches = 0              # ---- the recovered wave ----
+        qids = rec_srv.submit_many(batch)
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        got = rec_srv.drain()
+        sync(torch, dev)
+        first_wave_s = time.perf_counter() - t0
+        launches = fused_scan.launches       # ---- read right after ----
+        rec_srv.close()
+    finally:
+        obs.disable_tracing()
+    spans = {}
+    for e in tracer.events():
+        spans.setdefault(e["name"], []).append(e)
+    q, r = twin.query_batch(batch)
+    same_answers([got[k] for k in qids], split_hits(q, r, len(batch)),
+                 "recovered wave")
+    for attr in ("epoch", "compactions", "_next_id", "delta_rows",
+                 "tombstone_count", "trigger_checks"):
+        if getattr(rec, attr) != getattr(twin, attr):
+            raise AssertionError(f"recovered {attr} {getattr(rec, attr)} != "
+                                 f"the twin's {getattr(twin, attr)}")
+    if dev != "cpu" and (served <= 0 or launches <= 0):
+        raise AssertionError(f"fused_scan launches: journaled waves {served},"
+                             f" the recovered wave {launches}")
+    replayed = spans["wal.replay"][-1]["args"]["records"]
+    if replayed != 2:
+        raise AssertionError(f"replayed {replayed} records, expected 2")
+
+    def secs(name):
+        return ", ".join(f"{e['t1'] - e['t0']:.2f}" for e in spans.get(name, []))
+
+    load = spans["snapshot.load"][-1]
+    replay = spans["wal.replay"][-1]
+    say("durable", f"from_state of the main index ({twin.n_rows:,} live "
+        f"rows); attach_durability (first snapshot, keep=2) {attach_s:.2f} s,"
+        f" snapshot {snap_bytes / 2**30:.3f} GiB; {DURABLE_WAVES} waves of "
+        f"{wave}, a write batch ({cfg['inserts']:,} inserts + "
+        f"{cfg['deletes']} deletes) before each, WAL fsync at each wave "
+        f"boundary; checkpoints written {written} (s: "
+        f"{secs('durability.checkpoint')}); synchronous compaction after "
+        f"wave 4, its WAL rotation (snapshot publish) {secs('wal.rotate')} s "
+        f"(both compactions {both_compact_s:.1f} s); one more batch fsynced,"
+        f" WAL at {wal_records} records; crash; QueryServer.recover "
+        f"{restore_s:.2f} s: snapshot load {load['t1'] - load['t0']:.2f} s "
+        f"({load['args']['path']}), WAL replay {replay['t1'] - replay['t0']:.3f}"
+        f" s ({replayed} records), first device wave {first_wave_s:.2f} s; "
+        f"recovered wave == the live twin's; epoch {rec.epoch}, compactions "
+        f"{rec.compactions}, next id {rec._next_id}, delta rows "
+        f"{rec.delta_rows}, tombstones {rec.tombstone_count} == the twin's; "
+        f"fused_scan launches: the {DURABLE_WAVES} journaled waves {served}, "
+        f"the recovered first wave {launches}; directory removed; card "
+        f"{card_line}")
+    return dict(launches=served + launches)
 
 
 def fmt_lat(lat_s):
@@ -1149,6 +1588,9 @@ def main(argv=None) -> int:
         segs = segments_phase(torch, run, REHEARSE, "cpu")
         ops_phase(torch, run, segs, REHEARSE, "cpu")
         background_phase(torch, run, REHEARSE, "cpu", "no card")
+        cache_phase(torch, run, REHEARSE, "cpu", "no card")
+        sharded_phase(torch, run, REHEARSE, "cpu", "no card")
+        durable_phase(torch, run, REHEARSE, "cpu", "no card")
         print("chip_smoke: rehearsal on the CPU finished; no card, no "
               "result", file=sys.stderr)
         return 3
@@ -1164,6 +1606,9 @@ def main(argv=None) -> int:
     ops = ops_phase(torch, run, segs, cfg, "cuda")
     entry = times_phase(torch, run, segs, cfg, card_line)
     background_phase(torch, run, cfg, "cuda", card_line)
+    cache_phase(torch, run, cfg, "cuda", card_line)
+    sharded_phase(torch, run, cfg, "cuda", card_line)
+    durable_phase(torch, run, cfg, "cuda", card_line)
     kernels = [{
         "name": "fused_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fused_scan.cu",

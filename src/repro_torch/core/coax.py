@@ -38,11 +38,22 @@ epoch-handoff state machine, DESIGN.md §5.4).  The build thread runs numpy
 only: the new epoch's device images upload lazily, on the serving thread,
 at its first device wave (``_device_plan_obj``).
 
-Not in this package yet: durability (``save``/``restore``/WAL, and with it
-the handoff's WAL rotation and its crash recovery), the semantic result
-cache and pinned-epoch reads, and the sharded plane.  The state of an index
-fitted elsewhere comes in through ``COAXIndex.from_state``, and ``state``
-hands it out.
+Durability (DESIGN.md §7): ``attach_durability`` hooks a ``storage``
+durability plane onto the write path — every ``insert``/``delete`` appends
+one frame to an epoch-stamped write-ahead log before mutating memory, and
+``compact`` rotates the log under a fresh epoch snapshot.  ``save`` writes
+a one-shot full-state snapshot (delta planes and drift trackers included);
+``restore`` loads the newest complete snapshot and replays the WAL tail
+through these same write paths, yielding an index bit-identical to the
+never-crashed one on every backend.  The snapshot format is the reference
+package's, so a snapshot written by either package restores in the other.
+The state of an index fitted elsewhere also comes in through
+``COAXIndex.from_state``, and ``state`` hands it out.
+
+Semantic cache and pins (DESIGN.md §9): ``attach_cache`` consults a
+rect-containment result cache before every batched wave (only the misses
+reach the device), and ``pin_epoch`` opens an MVCC read handle that keeps
+answering from the pinned epoch across writes and handoffs.
 """
 from __future__ import annotations
 
@@ -138,6 +149,7 @@ class COAXIndex:
         self._device = str(device)
         self._coax_plan = None          # engine.device.CoaxDevicePlan (lazy)
         self.last_batch_stats = BatchStats()
+        self.durable = None             # storage.Durability, via attach_durability
         self._init_write_state()
         self._fit()
         self.backend = backend
@@ -158,6 +170,10 @@ class COAXIndex:
         self._last_compact_relearned = False
         self._viol_total = {}           # per-group arriving-row counts and
         self._viol_bad = {}             # margin violations since tracker reseed
+        self.cache = None               # engine.cache.SemanticCache (§9.2)
+        self.last_cache_stats = None    # CacheLookup of the latest wave
+        self._pins = {}                 # epoch -> live EpochPin count (§9.3)
+        self._id_order_cache = None     # (argsort, sorted ids) of row_ids
 
     # ------------------------------------------------------------------ #
     @property
@@ -311,6 +327,11 @@ class COAXIndex:
         kd, spill = self._delta_key_dim(), self.config.delta_l0_spill
         self.delta_primary = DeltaPlane(self.n_dims, key_dim=kd, l0_spill=spill)
         self.delta_outlier = DeltaPlane(self.n_dims, key_dim=kd, l0_spill=spill)
+        # the id->row gather index follows the snapshot arrays (§9.2); any
+        # attached SemanticCache survives the swap untouched — its entries
+        # are keyed on the pre-swap version and simply never match again,
+        # and live EpochPins (§9.3) hold their own refs to the old epoch
+        self._id_order_cache = None
 
     def _delta_key_dim(self) -> int:
         """Run key for the delta planes (DESIGN.md §5.3): the first FD
@@ -383,6 +404,8 @@ class COAXIndex:
                 self._next_id = max(self._next_id, int(ids.max()) + 1)
         if m == 0:
             return ids
+        if self.durable is not None:    # WAL before memory (DESIGN.md §7.2)
+            self.durable.log_insert(rows, ids)
         if self._handoff_ops is not None and not self._in_handoff_replay:
             # a background build is in flight: remember the op so the new
             # epoch can replay it after the handoff (DESIGN.md §5.4)
@@ -432,6 +455,8 @@ class COAXIndex:
         ids = np.unique(np.asarray(row_ids, dtype=np.int64).reshape(-1))
         if ids.size == 0:
             return 0
+        if self.durable is not None:    # WAL before memory (DESIGN.md §7.2)
+            self.durable.log_delete(ids)
         if self._handoff_ops is not None and not self._in_handoff_replay:
             self._handoff_ops.append(("d", ids.copy()))
         self._write_units += int(ids.size)
@@ -502,9 +527,9 @@ class COAXIndex:
         size+drift evaluation only runs once per ``compact_check_rows``
         written rows, or when a delta L0 spill signalled that the write
         plane grew a run (§5.3); evaluations are counted in
-        ``trigger_checks``.  The counters travel with the index state
-        (``from_state``), so check timing — and therefore every
-        auto-compaction decision — is bit-reproducible across a handover.
+        ``trigger_checks``.  The counters are serialized with the index, so
+        check timing — and therefore every auto-compaction decision — is
+        bit-reproducible across snapshot/restore and WAL replay (§7.3).
 
         * size — delta load (live inserts + tombstones) exceeds both
           ``compact_min_delta`` and ``compact_delta_frac`` of the snapshot;
@@ -514,10 +539,10 @@ class COAXIndex:
 
         With ``background_compact`` a fired trigger starts a §5.4
         background build instead of compacting synchronously — except
-        during the handoff tail replay, which compacts SYNCHRONOUSLY: the
-        replay must land on the state a single-threaded run of the same
-        ops would, so a trigger firing mid-replay fires exactly where the
-        sync world fires it.
+        during WAL replay and during the handoff tail replay, both of
+        which compact SYNCHRONOUSLY: replay must land on the same state a
+        single-threaded run of the same ops would (§7.3), so a trigger
+        firing mid-replay fires exactly where the sync world fires it.
         """
         if self._handoff_thread is not None:
             # one build at a time: fold it in if done, else keep serving
@@ -535,7 +560,8 @@ class COAXIndex:
                          and self.drift_predictability() < cfg.drift_threshold)
         if not (size_trigger or drift_trigger):
             return False
-        if cfg.background_compact and not self._in_handoff_replay:
+        if (cfg.background_compact and not self._in_handoff_replay
+                and not (self.durable is not None and self.durable._replaying)):
             self._begin_background_compact(relearn=drift_trigger or None)
             return True
         self.compact(relearn=drift_trigger or None)
@@ -602,9 +628,13 @@ class COAXIndex:
         True iff a handoff was installed.  SERVING THREAD ONLY: installation
         swaps the grids the next wave is answered from.
 
-        Install order: adopt the built epoch, reset the amortized-trigger
-        counters, then replay the recorded tail through the ordinary write
-        paths (a trigger firing inside the replay compacts synchronously).
+        Install order (crash-safe, §7.5): adopt the built epoch, reset the
+        amortized-trigger counters → open the new WAL → replay the recorded
+        tail through the ordinary write paths (journaled into the new WAL;
+        a trigger firing inside the replay compacts synchronously) → fsync
+        → publish the new-epoch snapshot → delete old WALs.  A crash before
+        the snapshot publish recovers from the old pair, whose WAL still
+        holds the trigger record and the full tail.
         """
         t = self._handoff_thread
         if t is None:
@@ -634,16 +664,23 @@ class COAXIndex:
         # agrees.
         self._write_units = 0
         self._spill_pending = False
-        self._in_handoff_replay = True
-        try:
-            with obs.span("compact.tail_replay", ops=len(ops)):
-                for op in ops:
-                    if op[0] == "i":
-                        self.insert(op[1], ids=op[2])
-                    else:
-                        self.delete(op[1])
-        finally:
-            self._in_handoff_replay = False
+
+        def _replay_tail():
+            self._in_handoff_replay = True
+            try:
+                with obs.span("compact.tail_replay", ops=len(ops)):
+                    for op in ops:
+                        if op[0] == "i":
+                            self.insert(op[1], ids=op[2])
+                        else:
+                            self.delete(op[1])
+            finally:
+                self._in_handoff_replay = False
+
+        if self.durable is not None:
+            self.durable.handoff_rotate(self, _replay_tail, relearned)
+        else:
+            _replay_tail()
         self.background_compactions += 1
         self.last_handoff_s = time.perf_counter() - self._handoff_t0
         g = obs.get_registry()
@@ -656,7 +693,7 @@ class COAXIndex:
 
     def finish_handoff(self) -> bool:
         """Block until any in-flight background build is installed —
-        called before a synchronous ``compact()`` and at
+        called before checkpoints, a synchronous ``compact()`` and at
         ``QueryServer.close`` (the §8.1 graceful-shutdown join)."""
         return self.poll_handoff(wait=True)
 
@@ -714,6 +751,9 @@ class COAXIndex:
         # what THIS compaction decided (the rotation control frame a
         # replication hub ships, DESIGN.md §8.2, replays it verbatim)
         self._last_compact_relearned = relearned
+        if self.durable is not None:
+            # new epoch snapshot + WAL rotation — the §7.5 truncation point
+            self.durable.on_compact(self)
         return {"epoch": self.epoch, "rows": int(self.data.shape[0]),
                 "relearned": relearned}
 
@@ -726,7 +766,8 @@ class COAXIndex:
         return dead
 
     # ------------------------------------------------------------------ #
-    # State handover: an index fitted elsewhere, served without a refit
+    # State handover and durability (DESIGN.md §7): full-state capture,
+    # save/restore
     # ------------------------------------------------------------------ #
     def _tracker_keys(self) -> List[Tuple[int, int]]:
         """(group index, dependent) pairs in the canonical (frozen) order —
@@ -736,8 +777,11 @@ class COAXIndex:
 
     def state(self) -> dict:
         """This index as the plain data ``from_state`` takes (arrays are
-        the live ones, not copies).  An in-flight background build is
-        folded in first, so the state is one whole epoch."""
+        the live ones, not copies) — also what a snapshot packs.  An
+        in-flight background build is folded in first, so the state is one
+        whole epoch; called from inside ``poll_handoff`` and ``compact``
+        (the durability plane's snapshots), the build is already cleared
+        and the join is a no-op."""
         self.finish_handoff()
         keys = self._tracker_keys()
         n_groups = range(len(self.groups))
@@ -812,6 +856,7 @@ class COAXIndex:
         idx._device = str(device)
         idx._coax_plan = None
         idx.last_batch_stats = BatchStats()
+        idx.durable = None
         idx.primary = GridFile.from_state(state["primary"],
                                           device_opts=device_opts,
                                           device=idx._device)
@@ -847,6 +892,46 @@ class COAXIndex:
         idx._viol_bad = {gi: int(v) for gi, v in enumerate(state["viol_bad"])}
         idx.backend = backend
         return idx
+
+    def save(self, directory, keep: Optional[int] = None):
+        """One-shot full-state snapshot into ``directory`` (atomic staged
+        rename; newest-complete wins at restore).  Returns the snapshot
+        path.  Saving into the attached durability directory routes through
+        ``Durability.checkpoint`` so the snapshot's ``wal_seq`` stays
+        consistent with the journal; any other target gets a self-contained
+        snapshot (the cold-start-replica / shard-migration artifact)."""
+        from pathlib import Path
+        from ..storage import write_snapshot
+        if (self.durable is not None
+                and Path(directory).resolve() == self.durable.directory.resolve()):
+            return self.durable.checkpoint(keep=keep)
+        return write_snapshot(self, directory, keep=keep)
+
+    @classmethod
+    def restore(cls, directory, backend: str = "device",
+                device_opts: Optional[dict] = None,
+                durable: bool = False, device: str = "cuda") -> "COAXIndex":
+        """Load the newest complete snapshot under ``directory`` and replay
+        the matching WAL tail; ``durable=True`` re-attaches the durability
+        plane so the recovered index keeps journaling where the crashed one
+        stopped.  See ``repro_torch.storage.restore``."""
+        from ..storage import restore as _restore
+        idx = _restore(directory, backend=backend, device_opts=device_opts,
+                       durable=durable, device=device)
+        if not isinstance(idx, cls):
+            raise TypeError(f"{directory} holds a {type(idx).__name__} "
+                            f"snapshot, not {cls.__name__}")
+        return idx
+
+    def attach_durability(self, directory, keep: int = 3,
+                          sync_every_op: bool = False) -> "COAXIndex":
+        """Start journaling this index's writes under ``directory``: writes
+        the current epoch snapshot if missing and opens the epoch's WAL.
+        Returns self."""
+        from ..storage import Durability
+        Durability.attach(self, directory, keep=keep,
+                          sync_every_op=sync_every_op)
+        return self
 
     # ------------------------------------------------------------------ #
     def translate(self, rect: Rect) -> np.ndarray:
@@ -895,6 +980,11 @@ class COAXIndex:
         waves whose candidate cells overflow ``cell_cap`` fall back to the
         host path.  Either way the answer is bit-identical to the numpy
         backend.
+
+        With an attached ``SemanticCache`` (``attach_cache``) the wave is
+        consulted first (DESIGN.md §9.2): exact/contained rects answer from
+        the cache, only the misses run the pipeline (and are admitted
+        back), and the merged answer is bit-identical to the uncached path.
         """
         self._poll_entry()
         rects = np.asarray(rects, dtype=np.float64)
@@ -904,10 +994,23 @@ class COAXIndex:
             return np.empty(0, np.int64), np.empty(0, np.int64)
         if self.backend == "device":
             return self.query_batch_collect(self.query_batch_submit(rects))
-        q_p, r_p, stats = self._query_batch_host(rects,
-                                                 self.translate_batch(rects))
-        self.last_batch_stats = stats
-        return q_p, r_p
+        route = self._cache_route(rects)
+        if route is None:
+            q_p, r_p, stats = self._query_batch_host(rects,
+                                                     self.translate_batch(rects))
+            self.last_batch_stats = stats
+            return q_p, r_p
+        answers, miss, version = route
+        if miss.size:
+            sub = np.ascontiguousarray(rects[miss])
+            q_m, r_m, stats = self._query_batch_host(sub,
+                                                     self.translate_batch(sub))
+            self._cache_admit(version, sub, q_m, r_m)
+        else:
+            q_m = r_m = np.empty(0, np.int64)
+            stats = BatchStats(backend=self.backend)
+        self.last_batch_stats = dataclasses.replace(stats, queries=b)
+        return self._merge_cached(answers, miss, q_m, r_m)
 
     def _query_batch_host(self, rects: np.ndarray, nav: np.ndarray,
                           fallbacks: int = 0):
@@ -957,6 +1060,154 @@ class COAXIndex:
         return q_p, r_p, stats
 
     # ------------------------------------------------------------------ #
+    # Semantic result cache (DESIGN.md §9.1–§9.2) + pinned-epoch MVCC
+    # reads (§9.3).  The cache consults BEFORE the pipeline and admits
+    # after it; pins capture the current epoch's objects for readers that
+    # must stay on it across background-compaction handoffs.
+    # ------------------------------------------------------------------ #
+    def attach_cache(self, byte_budget: int = 64 << 20,
+                     max_entries: int = 512,
+                     shard_id: Optional[int] = None) -> "COAXIndex":
+        """Attach a rect-containment ``SemanticCache`` (DESIGN.md §9.2) to
+        every batched read path (numpy and device).  ``shard_id`` is set by
+        ``ShardedCOAX.attach_cache`` so entries key on (shard, the shard's
+        OWN version), never an aggregate epoch.  Returns self."""
+        from ..engine.cache import SemanticCache
+        self.cache = SemanticCache(byte_budget=byte_budget,
+                                   max_entries=max_entries,
+                                   shard_id=shard_id)
+        self.last_cache_stats = None
+        return self
+
+    def detach_cache(self) -> None:
+        self.cache = None
+        self.last_cache_stats = None
+
+    def _cache_version(self) -> tuple:
+        """The write-state version cache entries are keyed on (§9.2):
+        epoch plus both planes' log/tombstone counters.  Every component
+        is monotone within an epoch and the epoch is monotone across
+        compactions, so ANY write — insert, delete, or an installed
+        handoff — moves the key and strands stale entries."""
+        dp, do = self.delta_primary, self.delta_outlier
+        return (self.epoch, dp.n_log, dp.n_tombstones,
+                do.n_log, do.n_tombstones)
+
+    def _cache_route(self, rects: np.ndarray):
+        """Consult the cache for a wave: ``None`` when no cache is
+        attached, else ``(answers, miss_indices, version)`` with per-wave
+        stats latched on ``last_cache_stats`` (read by the executor at
+        submit time, §9.2)."""
+        if self.cache is None:
+            return None
+        with obs.span("cache.route", queries=int(rects.shape[0])) as sp:
+            with obs.stage_timer("cache_route", self.backend):
+                version = self._cache_version()
+                answers, stats = self.cache.lookup_wave(version, rects)
+            if sp is not None:
+                sp.args.update(hits=stats.hits, partial=stats.partial)
+        self.last_cache_stats = stats
+        miss = np.array([i for i, a in enumerate(answers) if a is None],
+                        dtype=np.int64)
+        return answers, miss, version
+
+    def _cache_admit(self, version: tuple, rects: np.ndarray,
+                     qids: np.ndarray, rids: np.ndarray) -> None:
+        """Admit freshly answered rects.  Skipped wholesale when the live
+        version moved since the wave was routed (the §9.2 stale-admission
+        gate: a pipelined device wave may drain after writes — or a
+        handoff — landed; its answer is correct for the OLD version but
+        must not be stored under the new key)."""
+        if self.cache is None or version != self._cache_version():
+            return
+        with obs.span("cache.admit", queries=int(rects.shape[0])):
+            with obs.stage_timer("cache_admit", self.backend):
+                for rect, ids in zip(rects,
+                                     split_hits(qids, rids, rects.shape[0])):
+                    self.cache.admit(version, rect, ids,
+                                     self.rows_for_ids(ids))
+
+    @staticmethod
+    def _merge_cached(answers, miss, q_m, r_m):
+        """Merge cached per-query answers with the miss sub-batch's flat
+        hits back into the ``query_batch`` contract, sorted by (query,
+        row), without a sort: cached id arrays are sorted, the miss hits
+        come sorted by (sub-batch query, row) and ``miss`` is increasing,
+        so laying the per-query arrays out in query order is that order."""
+        parts = list(answers)
+        if miss.size:
+            for i, ids in zip(miss.tolist(), split_hits(q_m, r_m, miss.size)):
+                parts[i] = ids
+        sizes = np.array([0 if a is None else a.size for a in parts],
+                         dtype=np.int64)
+        if not sizes.any():
+            return np.empty(0, np.int64), np.empty(0, np.int64)
+        q = np.repeat(np.arange(len(parts), dtype=np.int64), sizes)
+        r = np.concatenate([a for a in parts if a is not None and a.size])
+        return q, r
+
+    def rows_for_ids(self, ids: np.ndarray) -> np.ndarray:
+        """(m, D) f32 row values for LIVE original ids — the §9.2 cache-
+        admission gather.  Snapshot ids resolve through a cached argsort of
+        ``row_ids`` (reset at every epoch install), the rest through the
+        delta planes' own gathers.  Raises ``KeyError`` for ids in neither
+        (a query's hit ids are always resolvable at its own version)."""
+        ids = np.asarray(ids, dtype=np.int64)
+        out = np.empty((ids.shape[0], self.n_dims), dtype=np.float32)
+        if ids.size == 0:
+            return out
+        if self._id_order_cache is None:
+            order = np.argsort(self.row_ids, kind="stable")
+            self._id_order_cache = (order, self.row_ids[order])
+        order, sids = self._id_order_cache
+        if sids.size:
+            pos = np.searchsorted(sids, ids)
+            pos[pos == sids.size] = sids.size - 1
+            found = sids[pos] == ids
+            if found.any():
+                out[found] = self.data[order[pos[found]]]
+        else:
+            found = np.zeros(ids.shape, dtype=bool)
+        rest = np.nonzero(~found)[0]
+        if rest.size:
+            f1, rows1 = self.delta_primary.rows_for_ids(ids[rest])
+            out[rest[f1]] = rows1
+            rem = rest[~f1]
+            if rem.size:
+                f2, rows2 = self.delta_outlier.rows_for_ids(ids[rem])
+                out[rem[f2]] = rows2
+                if not f2.all():
+                    raise KeyError(
+                        f"{int((~f2).sum())} ids not in snapshot or delta logs")
+        return out
+
+    def pin_epoch(self):
+        """Open an MVCC read handle on the CURRENT epoch (DESIGN.md §9.3):
+        the returned ``EpochPin`` keeps this epoch's grids, device plan and
+        a frozen delta image alive — refcounted in ``_pins`` — so its
+        answers stay bit-identical to this instant while writes and
+        background-compaction handoffs (§5.4) move the serving index to
+        newer epochs.  Release (or ``with``-exit) the pin to free the old
+        epoch once the serving index has moved on."""
+        self._poll_entry()
+        from ..engine.cache import EpochPin
+        pin = EpochPin(self)
+        self._pins[pin.epoch] = self._pins.get(pin.epoch, 0) + 1
+        return pin
+
+    def _release_pin(self, epoch: int) -> None:
+        n = self._pins.get(epoch, 0)
+        if n <= 1:
+            self._pins.pop(epoch, None)
+        else:
+            self._pins[epoch] = n - 1
+
+    @property
+    def pinned_epochs(self) -> List[int]:
+        """Epochs with at least one live ``EpochPin`` (§9.3)."""
+        return sorted(self._pins)
+
+    # ------------------------------------------------------------------ #
     # Device wave pipelining (DESIGN.md §4): submit launches the fused
     # kernel without transferring results; collect is the drain point.
     # ------------------------------------------------------------------ #
@@ -986,9 +1237,32 @@ class COAXIndex:
         this submit's snapshot+delta state even if writes land before
         collection (per-wave snapshot semantics).  A finished background
         build is folded in HERE, before the wave's snapshot is captured —
-        wave-boundary handoff visibility (§5.4)."""
+        wave-boundary handoff visibility (§5.4).
+        With a cache attached the wave is consulted against it first and
+        only the misses are submitted; the handle carries the cached
+        answers so ``query_batch_collect`` can merge them back (§9.2)."""
         self._poll_entry()
         rects = np.asarray(rects, dtype=np.float64)
+        route = self._cache_route(rects) if rects.shape[0] else None
+        if route is None:
+            return self._submit_uncached(rects, nav)
+        answers, miss, version = route
+        if miss.size == rects.shape[0]:          # all missed: plain wave
+            sub = rects
+            inner = self._submit_uncached(rects, nav)
+        elif miss.size:                          # partial: submit subset
+            sub = np.ascontiguousarray(rects[miss])
+            inner = self._submit_uncached(sub, None)
+        else:                                    # fully answered from cache
+            sub = rects[:0]
+            inner = ("host", np.empty(0, np.int64), np.empty(0, np.int64),
+                     BatchStats(backend=self.backend))
+        return ("cache", answers, miss, version, sub, inner)
+
+    def _submit_uncached(self, rects: np.ndarray,
+                         nav: Optional[np.ndarray] = None):
+        """``query_batch_submit`` without the cache: one device wave (or
+        its host fallback) over exactly ``rects``."""
         if nav is None:
             nav = self.translate_batch(rects) if rects.shape[0] else None
         fallbacks = 0
@@ -1006,8 +1280,21 @@ class COAXIndex:
 
     def query_batch_collect(self, handle) -> Tuple[np.ndarray, np.ndarray]:
         """Drain one submitted wave (wait on its completion event, copy the
-        compacted hit buffers back) and return its ``query_batch``
-        answer."""
+        compacted hit buffers back) and return its ``query_batch`` answer.
+        Cache-wrapped handles drain the miss sub-wave, admit its answers
+        (gated on the version still matching, §9.2), and merge with the
+        handle's cached answers."""
+        if handle[0] != "cache":
+            return self._collect_uncached(handle)
+        _, answers, miss, version, sub, inner = handle
+        q_m, r_m = self._collect_uncached(inner)
+        if miss.size:
+            self._cache_admit(version, sub, q_m, r_m)
+        self.last_batch_stats = dataclasses.replace(
+            self.last_batch_stats, queries=len(answers))
+        return self._merge_cached(answers, miss, q_m, r_m)
+
+    def _collect_uncached(self, handle) -> Tuple[np.ndarray, np.ndarray]:
         if handle[0] == "host":
             _, q, r, stats = handle
             self.last_batch_stats = stats
@@ -1039,14 +1326,21 @@ class COAXIndex:
     def memory_footprint(self) -> int:
         """Bytes actually held beyond the snapshot payload: both grid
         directories, the soft-FD model parameters, the live drift trackers,
-        the §8.2.3 outlier bbox arrays and the delta structures."""
+        the §8.2.3 outlier bbox arrays, the delta structures, the cache's
+        resident entries and — when a durability plane is attached — the
+        WAL tail appended but not yet fsynced (page-cache resident until
+        the wave-boundary sync, §7.2)."""
         model_bytes = sum(len(g.dependents) * 4 * 8 + 8 for g in self.groups)
         tracker_bytes = len(self._fd_trackers) * 7 * 8     # xtx(4)+xty(2)+lam
         bbox_bytes = (self._outlier_lo.nbytes + self._outlier_hi.nbytes
                       if self._outlier_lo is not None else 0)
         delta_bytes = self.delta_primary.nbytes() + self.delta_outlier.nbytes()
+        wal_pending = (self.durable.wal_pending_bytes
+                       if self.durable is not None else 0)
+        cache_bytes = self.cache.nbytes if self.cache is not None else 0
         return (self.primary.memory_footprint() + self.outlier.memory_footprint()
-                + model_bytes + tracker_bytes + bbox_bytes + delta_bytes)
+                + model_bytes + tracker_bytes + bbox_bytes + delta_bytes
+                + wal_pending + cache_bytes)
 
     def describe(self) -> dict:
         return {
@@ -1086,4 +1380,8 @@ class COAXIndex:
             "outlier_bbox_bytes": (self._outlier_lo.nbytes + self._outlier_hi.nbytes
                                    if self._outlier_lo is not None else 0),
             "memory_footprint_bytes": self.memory_footprint(),
+            "pinned_epochs": self.pinned_epochs,
+            "cache": (self.cache.describe() if self.cache is not None else None),
+            "durability": (self.durable.describe()
+                           if self.durable is not None else None),
         }

@@ -15,10 +15,16 @@ snapshot+delta state.
                          per wave, hits compacted into device-resident
                          buffers and drained one wave behind the submit
                          (double-buffered by executor/server)
+``ShardedCOAX``        — K-shard scatter-gather plane (§6): range/hash
+                         partitioning, per-shard FDs and device plans
+``SemanticCache``      — rect-containment result cache (§9.2); ``EpochPin``
+                         / ``ShardedEpochPin`` are MVCC read handles (§9.3)
 """
+from .cache import CacheLookup, EpochPin, SemanticCache, ShardedEpochPin
 from .device import CoaxDevicePlan, DevicePlan
 from .executor import BatchQueryExecutor, WaveStats, split_hits
 from .server import PendingQuery, QueryServer
+from .sharded import ShardedCOAX, partition_rows
 
 __all__ = [
     "BatchQueryExecutor",
@@ -28,4 +34,10 @@ __all__ = [
     "PendingQuery",
     "DevicePlan",
     "CoaxDevicePlan",
+    "ShardedCOAX",
+    "partition_rows",
+    "SemanticCache",
+    "CacheLookup",
+    "EpochPin",
+    "ShardedEpochPin",
 ]

@@ -75,6 +75,7 @@ no quiet fallback to the CPU or to numpy.
 """
 from __future__ import annotations
 
+import copy
 import time
 from typing import Optional, Tuple
 
@@ -635,6 +636,9 @@ class CoaxDevicePlan(_PlanBase):
         self.primary = index.primary
         self.outlier = index.outlier
         self.epoch = int(index.epoch)
+        # the §8.2.3 outlier bbox moves only with the grids (at install)
+        self.outlier_lo = index._outlier_lo
+        self.outlier_hi = index._outlier_hi
         self.p_img = (_GridImage(self.primary, self.tile, self.device,
                                  self._gather)
                       if self.primary.n_rows else None)
@@ -650,9 +654,28 @@ class CoaxDevicePlan(_PlanBase):
         self._delta = None
 
     # ------------------------------------------------------------------ #
+    def pinned(self) -> "CoaxDevicePlan":
+        """Read-only twin of this plan, frozen at the index's current write
+        state: the device half of a pinned-epoch read (DESIGN.md §9.3).
+        It shares every device tensor of this plan (row images, liveness
+        masks, delta image; a refresh uploads new tensors and never writes
+        one in place), owns its image handles, shape set and counters, and
+        never refreshes, so later writes and handoffs on the live index
+        cannot reach its waves.  Pinning uploads nothing."""
+        self._refresh_writes()
+        pin = copy.copy(self)
+        pin.index = None
+        pin.p_img = copy.copy(self.p_img)
+        pin.o_img = copy.copy(self.o_img)
+        pin._shapes = set(self._shapes)
+        return pin
+
     def _refresh_writes(self) -> None:
         """Re-upload liveness masks / the delta image iff the delta-plane
-        counters moved since the last wave (cheap no-op in steady state)."""
+        counters moved since the last wave (cheap no-op in steady state).
+        A pinned plan (``pinned``) has no index and never refreshes."""
+        if self.index is None:
+            return
         dp, do = self.index.delta_primary, self.index.delta_outlier
         dead_key = (dp.n_tombstones, do.n_tombstones)
         if dead_key != self._dead_key:
@@ -766,10 +789,10 @@ class CoaxDevicePlan(_PlanBase):
                                           ncq, bp, out)
 
         touch = np.zeros(b, bool)
-        if self.index._outlier_lo is not None:
+        if self.outlier_lo is not None:
             touch = np.all(
-                (rects[:, :, 0] <= self.index._outlier_hi)
-                & (rects[:, :, 1] > self.index._outlier_lo), axis=1)
+                (rects[:, :, 0] <= self.outlier_hi)
+                & (rects[:, :, 1] > self.outlier_lo), axis=1)
         if self.o_img is not None and touch.any():
             # nav == full rect for the full-dim outlier grid
             of, ol, oncq = self.o_img.probe_batch(rects)

@@ -76,6 +76,12 @@ class WaveStats:
     epoch: int = 0               # snapshot epoch the wave was served from (§5)
     delta_rows: int = 0          # live delta-log rows unioned into the wave
     tombstones: int = 0          # tombstoned ids masked out of the wave
+    shards_hit: int = 0          # shards the wave scattered to (§6; 0 = unsharded)
+    shard_stats: tuple = ()      # per-shard (queries, rows_scanned,
+                                 # cells_probed, fallbacks) this wave (§6)
+    cache_hits: int = 0          # queries answered exactly from the §9 cache
+    cache_partial: int = 0       # queries answered by containment filtering
+    cache_bytes: int = 0         # cache residency when the wave was routed
 
     @property
     def qps(self) -> float:
@@ -94,8 +100,18 @@ class BatchQueryExecutor:
         ``"device"`` set it on indexes that expose one (GridFile/COAXIndex)
         before the first wave.  Requesting ``"device"`` on an index without
         backend support raises.
+    shards : ``None`` serves the index as-is.  ``K`` turns on sharded mode
+        (DESIGN.md §6): an index that is already a K-shard plane is accepted
+        unchanged; a mutable single index (``live_rows`` + ``config``) is
+        re-partitioned into a ``ShardedCOAX`` over its live rows.  Waves then
+        carry per-shard rollups in ``WaveStats.shard_stats``.  A plane has
+        no split submit/collect API, so its waves run synchronously.
+    cache_bytes : byte budget for a §9 semantic result cache attached to
+        the index (``attach_cache``); ``None`` leaves caching off.  Hit
+        rollups land in ``WaveStats``/``stats()``.
     device : torch device set on indexes that expose one (``"cuda"`` by
-        default; ``"cpu"`` runs the kernels' plain versions).
+        default; ``"cpu"`` runs the kernels' plain versions) — after any
+        re-partitioning, so it reaches every shard of a plane.
     wave_history : per-wave ``WaveStats`` rows retained in the bounded
         ring behind the ``wave_stats`` property (§10.4 satellite — the
         old unbounded list grew O(waves) on a long-running server).
@@ -104,12 +120,26 @@ class BatchQueryExecutor:
 
     def __init__(self, index, max_batch: int = 64,
                  backend: Optional[str] = None,
+                 shards: Optional[int] = None,
+                 cache_bytes: Optional[int] = None,
                  wave_history: int = WAVE_HISTORY,
                  device: str = "cuda"):
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
         if wave_history < 1:
             raise ValueError("wave_history must be >= 1")
+        if shards is not None:
+            n = getattr(index, "n_shards", None)
+            if n is not None:
+                if n != shards:
+                    raise ValueError(
+                        f"index has {n} shards, executor asked for {shards}")
+            elif hasattr(index, "live_rows") and hasattr(index, "config"):
+                from .sharded import ShardedCOAX
+                index = ShardedCOAX.from_index(index, shards)
+            else:
+                raise ValueError(
+                    f"{type(index).__name__} cannot be sharded")
         if hasattr(index, "device"):
             index.device = device
         self.index = index
@@ -123,6 +153,12 @@ class BatchQueryExecutor:
             elif backend != "numpy":
                 raise ValueError(
                     f"{type(index).__name__} has no device backend")
+        if cache_bytes is not None:
+            attach = getattr(self.index, "attach_cache", None)
+            if attach is None:
+                raise ValueError(
+                    f"{type(self.index).__name__} has no attach_cache")
+            attach(byte_budget=int(cache_bytes))
         self.reset_stats()
 
     def reset_stats(self) -> None:
@@ -145,10 +181,22 @@ class BatchQueryExecutor:
                                      "waves with >=1 fallback")
         self._c_overflows = m.counter("hit_overflows",
                                       "per-query device hit-buffer overflows")
+        self._c_cache_hits = m.counter("cache_hits", "exact cache answers")
+        self._c_cache_partial = m.counter("cache_partial",
+                                          "containment cache answers")
         self._h_wave = m.histogram("wave_seconds", "submit->drain latency",
                                    ("backend",))
         self._g_delta = m.gauge("delta_rows", "live delta rows at last wave")
         self._g_tomb = m.gauge("tombstones", "tombstones at last wave")
+        self._g_cache_bytes = m.gauge("cache_bytes", "cache residency")
+        self._c_shard = m.counter("shard_queries", "queries per shard",
+                                  ("shard",))
+        self._c_shard_rows = m.counter("shard_rows_scanned",
+                                       "rows per shard", ("shard",))
+        self._c_shard_cells = m.counter("shard_cells_probed",
+                                        "cells per shard", ("shard",))
+        self._c_shard_fb = m.counter("shard_fallbacks",
+                                     "fallbacks per shard", ("shard",))
 
     @property
     def wave_stats(self) -> List[WaveStats]:
@@ -191,16 +239,22 @@ class BatchQueryExecutor:
         rids = np.concatenate(hits) if hits else np.empty(0, np.int64)
         return qids, rids
 
-    def _wave_meta(self) -> Tuple[int, int, int]:
-        """Epoch/delta/tombstone state captured at SUBMIT time — the frozen
-        snapshot + write-plane state the wave is answered from (§4/§5)."""
+    def _wave_meta(self) -> Tuple[int, int, int, Tuple[int, int, int]]:
+        """Epoch/delta/tombstone + §9 cache state captured at SUBMIT time —
+        the frozen snapshot + write-plane state the wave is answered from
+        (§4/§5).  Cache stats MUST be read here, not at drain: a pipelined
+        wave ``i+1`` routes through the cache (overwriting the index's
+        ``last_cache_stats``) before wave ``i`` drains."""
+        cs = getattr(self.index, "last_cache_stats", None)
+        cache = (cs.hits, cs.partial, cs.bytes) if cs is not None else (0, 0, 0)
         return (int(getattr(self.index, "epoch", 0)),
                 int(getattr(self.index, "delta_rows", 0)),
-                int(getattr(self.index, "tombstone_count", 0)))
+                int(getattr(self.index, "tombstone_count", 0)),
+                cache)
 
     def _record_wave(self, wave: np.ndarray, qids: np.ndarray,
                      rids: np.ndarray, t0: float,
-                     meta: Tuple[int, int, int],
+                     meta: Tuple[int, int, int, Tuple[int, int, int]],
                      ) -> List[np.ndarray]:
         """Shared drain-side bookkeeping: wall-clock accounting, per-wave
         stats row (ring), registry aggregates, hit splitting.
@@ -212,6 +266,11 @@ class BatchQueryExecutor:
         self._last_done = done
         bs = getattr(self.index, "last_batch_stats", None) \
             if self._batched else None
+        ss = getattr(self.index, "last_shard_stats", None) \
+            if self._batched else None
+        shard_stats = tuple(
+            (s.queries, s.rows_scanned, s.cells_probed, s.fallbacks)
+            for s in ss) if ss is not None else ()
         ws = WaveStats(
             self._wave_seq, int(wave.shape[0]), int(rids.size),
             done - t0,
@@ -220,7 +279,11 @@ class BatchQueryExecutor:
             backend=bs.backend if bs else self.backend,
             fallbacks=bs.fallbacks if bs else 0,
             hit_overflows=getattr(bs, "hit_overflows", 0) if bs else 0,
-            epoch=meta[0], delta_rows=meta[1], tombstones=meta[2])
+            epoch=meta[0], delta_rows=meta[1], tombstones=meta[2],
+            shards_hit=sum(1 for s in shard_stats if s[0] > 0),
+            shard_stats=shard_stats,
+            cache_hits=meta[3][0], cache_partial=meta[3][1],
+            cache_bytes=meta[3][2])
         self._wave_seq += 1
         self._ring.append(ws)
         # -- registry aggregates (stats() reads these in O(1), §10.1) -- #
@@ -233,9 +296,23 @@ class BatchQueryExecutor:
             self._c_fb_waves.inc()
         if ws.hit_overflows:
             self._c_overflows.inc(ws.hit_overflows)
+        if ws.cache_hits:
+            self._c_cache_hits.inc(ws.cache_hits)
+        if ws.cache_partial:
+            self._c_cache_partial.inc(ws.cache_partial)
         self._h_wave.observe(ws.latency_s, backend=ws.backend)
         self._g_delta.set(ws.delta_rows)
         self._g_tomb.set(ws.tombstones)
+        self._g_cache_bytes.set(ws.cache_bytes)
+        for k, s in enumerate(shard_stats):
+            if s[0]:
+                self._c_shard.inc(s[0], shard=k)
+            if s[1]:
+                self._c_shard_rows.inc(s[1], shard=k)
+            if s[2]:
+                self._c_shard_cells.inc(s[2], shard=k)
+            if s[3]:
+                self._c_shard_fb.inc(s[3], shard=k)
         self._epochs.add(ws.epoch)
         # process-global mirror (exposition; DESIGN.md §10.1)
         g = obs.get_registry()
@@ -266,7 +343,7 @@ class BatchQueryExecutor:
                        backend="device") if tr else None
         t0 = time.perf_counter()
         if wsp is not None:
-            with tr.attach(wsp):       # dispatch spans nest under it
+            with tr.attach(wsp):       # dispatch/cache spans nest under it
                 handle = self.index.query_batch_submit(wave)
         else:
             handle = self.index.query_batch_submit(wave)
@@ -335,9 +412,25 @@ class BatchQueryExecutor:
         total_q = int(self._c_queries.total())
         total_s = self._wall_s      # non-overlapping busy time; < sum of
         lat = self._h_wave          # latencies when the pipeline overlapped
+        n_shards = int(getattr(self.index, "n_shards", 0))
+        per_shard = [
+            {"queries": int(self._c_shard.value(shard=k)),
+             "rows_scanned": int(self._c_shard_rows.value(shard=k)),
+             "cells_probed": int(self._c_shard_cells.value(shard=k)),
+             "fallbacks": int(self._c_shard_fb.value(shard=k))}
+            for k in range(n_shards)]
+        cache_hits = int(self._c_cache_hits.total())
+        cache_partial = int(self._c_cache_partial.total())
         return {
+            "shards": n_shards,
+            "per_shard": per_shard,
             "waves": self._wave_seq,
             "queries": total_q,
+            "cache_hits": cache_hits,
+            "cache_partial": cache_partial,
+            "cache_hit_rate": ((cache_hits + cache_partial) / total_q
+                               if total_q else 0.0),
+            "cache_bytes": int(self._g_cache_bytes.value()),
             "hits": int(self._c_hits.total()),
             "rows_scanned": int(self._c_rows.total()),
             "cells_probed": int(self._c_cells.total()),

@@ -14,6 +14,12 @@ wave answer against the same snapshot+delta state — per-wave snapshot
 semantics.  A query admitted before a write but drained after it observes
 the write; two queries in the same wave can never observe different states.
 
+Durability (DESIGN.md §7): when the index carries a durability plane, the
+server fsyncs its WAL right after each wave-boundary flush — the durable
+frontier advances in the same per-wave steps as the visibility frontier
+(§7.2 fsync contract) — and every ``checkpoint_every`` waves it publishes
+a mid-epoch snapshot to bound replay cost.  ``QueryServer.recover`` is the
+restart constructor: snapshot + WAL replay, then serve.
 """
 from __future__ import annotations
 
@@ -49,14 +55,23 @@ class QueryServer:
     max_batch : queries fused per wave.
     backend : forwarded to ``BatchQueryExecutor`` — ``"device"`` serves
         waves from the index's device-resident plan (DESIGN.md §4).
+    shards : forwarded to ``BatchQueryExecutor`` — ``K`` serves waves from a
+        K-shard scatter-gather plane (DESIGN.md §6), re-partitioning a
+        single mutable index when needed; stats gain per-shard rollups.
+    checkpoint_every : publish a durability checkpoint (mid-epoch snapshot
+        stamped with the journal position, DESIGN.md §7) every this many
+        drained waves; None disables the cadence.  No-op unless the index
+        has a durability plane attached.
+    cache_bytes : byte budget for a §9 semantic result cache on the served
+        index (forwarded to ``BatchQueryExecutor``); None leaves it off.
     device : forwarded to ``BatchQueryExecutor`` — the torch device of the
         index's plan (``"cuda"`` by default, ``"cpu"`` for the kernels'
         plain versions).
     shutdown : an object with a boolean ``requested`` flag to honour: when
         it flips (SIGTERM on a managed host), ``drain`` finishes the
         in-flight wave, stops forming new ones, and returns — the caller
-        then runs ``close()`` (flush queued writes) and exits cleanly
-        instead of dying mid-wave.
+        then runs ``close()`` (flush queued writes, fsync the WAL, release
+        the handle) and exits cleanly instead of dying mid-wave.
     watchdog : serving-pause monitor (DESIGN.md §10.3) fed one tick per
         completed wave; pauses exceeding N× the trailing median gap raise
         ``serving_pause_total{culprit=...}`` with the responsible
@@ -68,11 +83,16 @@ class QueryServer:
     def __init__(self, index, max_batch: int = 64,
                  executor: Optional[BatchQueryExecutor] = None,
                  backend: Optional[str] = None,
+                 shards: Optional[int] = None,
+                 checkpoint_every: Optional[int] = None,
+                 cache_bytes: Optional[int] = None,
                  shutdown=None,
                  watchdog: Optional[PauseWatchdog] = None,
                  device: str = "cuda"):
         self.executor = executor or BatchQueryExecutor(
-            index, max_batch=max_batch, backend=backend, device=device)
+            index, max_batch=max_batch, backend=backend, shards=shards,
+            cache_bytes=cache_bytes, device=device)
+        self.checkpoint_every = checkpoint_every
         self.shutdown = shutdown
         self.watchdog = watchdog if watchdog is not None else PauseWatchdog()
         self.closed = False
@@ -85,6 +105,29 @@ class QueryServer:
         self.writes_applied = 0
         self.rows_inserted = 0
         self.rows_deleted = 0
+        self.checkpoints_written = 0
+
+    # ------------------------------------------------------------------ #
+    @classmethod
+    def recover(cls, directory, max_batch: int = 64,
+                backend: Optional[str] = None,
+                shards: Optional[int] = None,
+                checkpoint_every: Optional[int] = None,
+                durable: bool = True, device: str = "cuda",
+                **restore_kwargs) -> "QueryServer":
+        """Restart constructor (DESIGN.md §7.4): recover the index from a
+        durability directory — newest complete snapshot + WAL-tail replay,
+        single or sharded, sniffed from the layout — and serve it on the
+        torch ``device``.  With ``durable`` (default) the recovered index
+        resumes journaling where the crashed process stopped.  Asked for
+        the device backend on an absent device, it raises before reading
+        the directory."""
+        from ..storage import restore
+        index = restore(directory, backend=backend or "device",
+                        durable=durable, device=device, **restore_kwargs)
+        return cls(index, max_batch=max_batch, backend=backend,
+                   shards=shards, checkpoint_every=checkpoint_every,
+                   device=device)
 
     # ------------------------------------------------------------------ #
     def submit(self, rect: np.ndarray, priority: float = 0.0,
@@ -181,8 +224,23 @@ class QueryServer:
         self.write_results.update(applied)
         return applied
 
+    def pin_epoch(self):
+        """Open an MVCC read handle on the served index (DESIGN.md §9.3).
+
+        Queued writes are flushed FIRST so the pin captures the state a
+        drain at this instant would serve, then the index's ``pin_epoch``
+        freezes it: the handle answers bit-identically to now while
+        subsequent drains, writes, and background-compaction handoffs move
+        the server forward.  Release the handle to free the old epoch."""
+        index = self.executor.index
+        pin = getattr(index, "pin_epoch", None)
+        if pin is None:
+            raise TypeError(f"{type(index).__name__} has no pin_epoch")
+        self.flush_writes()
+        return pin()
+
     # ------------------------------------------------------------------ #
-    def _finish_wave(self, wave, answers,
+    def _finish_wave(self, wave, answers, dur,
                      results: Dict[int, np.ndarray]) -> None:
         """Drain-side bookkeeping shared by the pipelined and sync paths."""
         for q, ans in zip(wave, answers):
@@ -190,6 +248,10 @@ class QueryServer:
         self.waves_drained += 1
         if self.watchdog is not None:
             self.watchdog.wave_done()          # §10.3 pause detection
+        if (dur is not None and self.checkpoint_every
+                and self.waves_drained % self.checkpoint_every == 0):
+            dur.checkpoint()
+            self.checkpoints_written += 1
 
     def drain(self, max_waves: Optional[int] = None) -> Dict[int, np.ndarray]:
         """Run pending queries to completion (or for ``max_waves`` waves).
@@ -197,7 +259,9 @@ class QueryServer:
         Returns {query_id: sorted row ids} for every query answered.  Wave
         formation is priority-then-FIFO, like the router's admission sort.
         Queued writes are flushed at every wave boundary, so each wave
-        observes one consistent index state (per-wave snapshot semantics).
+        observes one consistent index state (per-wave snapshot semantics);
+        a durability plane, if attached, fsyncs its WAL at the same
+        boundary — the log and the wave agree on what happened (§7.2).
 
         On the device backend the drain loop is DOUBLE-BUFFERED (DESIGN.md
         §4): each wave is submitted via ``executor.execute_submit`` — one
@@ -219,12 +283,15 @@ class QueryServer:
         width = self.executor.max_batch
         waves_this_call = 0
         inflight: List[tuple] = []             # [(wave_queries, pending)]
+        dur = getattr(self.executor.index, "durable", None)
         while self._pending or self._write_queue:
             if max_waves is not None and waves_this_call >= max_waves:
                 break
             if self.shutdown_requested:
                 break                      # in-flight waves still collected
             self.flush_writes()
+            if dur is not None:
+                dur.sync()
             if not self._pending:
                 break
             cands = sorted(self._pending.values(),
@@ -240,17 +307,18 @@ class QueryServer:
                 if len(inflight) >= 2:
                     w, p = inflight.pop(0)
                     self._finish_wave(w, self.executor.execute_collect(p),
-                                      results)
+                                      dur, results)
                 continue
             while inflight:                    # backend flipped mid-drain
                 w, p = inflight.pop(0)
                 self._finish_wave(w, self.executor.execute_collect(p),
-                                  results)
-            self._finish_wave(wave, self.executor.execute(rects), results)
+                                  dur, results)
+            self._finish_wave(wave, self.executor.execute(rects),
+                              dur, results)
         while inflight:
             w, p = inflight.pop(0)
             self._finish_wave(w, self.executor.execute_collect(p),
-                              results)
+                              dur, results)
         return results
 
     # ------------------------------------------------------------------ #
@@ -261,15 +329,20 @@ class QueryServer:
         return self.shutdown is not None and self.shutdown.requested
 
     def close(self) -> None:
-        """Orderly exit: apply every queued write, then JOIN any in-flight
+        """Orderly exit: apply every queued write, JOIN any in-flight
         background compaction (installing its epoch — the §5.4 graceful-
-        shutdown contract: the compactor's work is never abandoned).
-        Idempotent, so signal handlers and ``finally`` blocks can both
-        call it."""
+        shutdown contract: the compactor's work is never abandoned), fsync
+        the journal tail, release the WAL handle.  Idempotent (the
+        durability plane's close is), so signal handlers and ``finally``
+        blocks can both call it."""
         self.flush_writes()
         fh = getattr(self.executor.index, "finish_handoff", None)
         if fh is not None:
             fh()
+        dur = getattr(self.executor.index, "durable", None)
+        if dur is not None:
+            dur.sync()
+            dur.close()
         self.closed = True
 
     # ------------------------------------------------------------------ #
@@ -290,9 +363,19 @@ class QueryServer:
             compactions=int(getattr(index, "compactions", 0)),
             delta_rows=int(getattr(index, "delta_rows", 0)),
             tombstones=int(getattr(index, "tombstone_count", 0)),
+            checkpoints_written=self.checkpoints_written,
             shutdown_requested=self.shutdown_requested,
             closed=self.closed,
         )
+        dur = getattr(index, "durable", None)
+        if dur is not None:
+            d = dur.describe()
+            s.update(
+                wal_records=d["wal_records"],
+                wal_bytes=d["wal_bytes"],
+                wal_pending_bytes=d["wal_pending_bytes"],
+                last_snapshot_bytes=d["last_snapshot_bytes"],
+            )
         if self.watchdog is not None:
             w = self.watchdog.describe()
             s.update(pauses=w["pauses"],

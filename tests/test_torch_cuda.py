@@ -11,6 +11,8 @@ its plain version compute the same compares, the same roundings and the
 same integer counts.
 """
 import importlib
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -527,3 +529,156 @@ def test_new_wrappers_reject_what_the_kernels_do_not_take(cuda):
         margin_split(col, col, params[:5], tile=256)
     with pytest.raises(TypeError):
         margin_split(col, col.half(), params, tile=256)
+
+
+# ---- the slice's paths on the card: cache, shards, pins, recovery ----------
+
+def _host_split(idx, rects):
+    """The index's numpy host answer at its current write state."""
+    bk = idx.backend
+    idx.backend = "numpy"
+    q, r = idx.query_batch(rects)
+    idx.backend = bk
+    return split_hits(q, r, rects.shape[0])
+
+
+def _zipf(data, n, n_hot, seed):
+    """The smoke's Zipfian hot-rect stream (``chip_smoke.zipf_rects``, the
+    port's copy of ``tests/workloads.py``'s generator, which imports JAX):
+    alpha 1.1, a quarter of the draws nested inside their hot rect."""
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke.zipf_rects(data, n, n_hot, 1.1, 0.25, seed, 10_000)
+
+
+def test_cached_server_on_cuda_equals_host(cuda):
+    """Cache misses run ``fused_scan`` on the card, hits launch nothing;
+    every answer equals the host path at its write state."""
+    ds = make_airline(300_000, seed=2)
+    idx = COAXIndex(ds.data, device="cuda")
+    rects = _zipf(ds.data, 96, 8, seed=3)
+    srv = QueryServer(idx, max_batch=32, cache_bytes=64 << 20, device="cuda")
+    launches = []
+    for step in range(3):
+        if step == 2:
+            srv.insert(make_airline(500, seed=11).data)
+            srv.delete(np.arange(200))
+            srv.flush_writes()
+        before = fused_scan.launches
+        qids = srv.submit_many(rects)
+        got = srv.drain()
+        launches.append(fused_scan.launches - before)
+        want = _host_split(idx, rects)
+        for i, q in enumerate(qids):
+            assert np.array_equal(got[q], want[i]), (step, i)
+    s = srv.stats()
+    assert launches[0] > 0 and launches[1] == 0 and launches[2] > 0
+    assert s["cache_hits"] + s["cache_partial"] > 0 and s["cache_bytes"] > 0
+
+
+def test_sharded_plane_on_cuda_equals_host(cuda):
+    """Every shard's waves run on the card; the plane equals a single
+    index's host answer through writes and a compaction."""
+    ds = make_airline(300_000, seed=4)
+    single = COAXIndex(ds.data, backend="numpy", device="cuda")
+    srv = QueryServer(COAXIndex(ds.data, device="cuda"), max_batch=32,
+                      shards=4, device="cuda")
+    plane = srv.executor.index
+    assert plane.n_shards == 4 and plane.device == "cuda"
+    rects = knn_rect_queries(ds.data, 64, 64, seed=5)
+    before = fused_scan.launches
+    for step in range(3):
+        rows = make_airline(400, seed=20 + step).data
+        dead = np.arange(step * 50, step * 50 + 50)
+        srv.insert(rows)
+        srv.delete(dead)
+        single.insert(rows)
+        single.delete(dead)
+        if step == 1:
+            srv.flush_writes()
+            plane.compact()
+            single.compact()
+        qids = srv.submit_many(rects)
+        got = srv.drain()
+        q, r = single.query_batch(rects)
+        want = split_hits(q, r, rects.shape[0])
+        for i, qid in enumerate(qids):
+            assert np.array_equal(got[qid], want[i]), (step, i)
+    assert fused_scan.launches > before
+    assert all(s._coax_plan.device.type == "cuda" for s in plane.shards)
+    assert sum(p["queries"] for p in srv.stats()["per_shard"]) > 0
+
+
+def test_pin_across_handoff_on_cuda_frees_the_old_plan(cuda):
+    """A pin holds the old epoch's device plan across a background handoff
+    and answers through it on the card (``fused_scan``) as the index did at
+    pin time; releasing it frees the plan and its device memory."""
+    import gc
+    import weakref
+    from repro_torch.core import CoaxConfig
+    ds = make_airline(300_000, seed=6)
+    cfg = CoaxConfig(background_compact=True, compact_min_delta=1_000,
+                     compact_delta_frac=1e-3)
+    idx = COAXIndex(ds.data, cfg, device="cuda")
+    rects = knn_rect_queries(ds.data, 32, 64, seed=7)
+    live0 = idx.query_batch_split(rects)
+    pin = idx.pin_epoch()
+    plan = weakref.ref(pin._plan)
+    rows = weakref.ref(pin._plan.p_img.rows_t)
+    before = fused_scan.launches
+    want = pin.query_batch_split(rects)
+    assert fused_scan.launches > before         # pinned waves run the kernel
+    for i, w in enumerate(want):
+        assert np.array_equal(live0[i], w), i
+    while idx.background_compactions < 1:
+        idx.insert(make_airline(600, seed=30 + idx.trigger_checks).data)
+        idx.finish_handoff()
+    got = idx.query_batch_split(rects)          # the new epoch's plan
+    for i, (g, h) in enumerate(zip(got, _host_split(idx, rects))):
+        assert np.array_equal(g, h), i
+    assert idx._coax_plan is not plan() and plan() is not None
+    assert rows() is not idx._coax_plan.p_img.rows_t
+    before = fused_scan.launches
+    for i, (p, w) in enumerate(zip(pin.query_batch_split(rects), want)):
+        assert np.array_equal(p, w), i
+    assert fused_scan.launches > before         # on the old epoch's images
+    held = torch.cuda.memory_allocated()
+    pin.release()
+    gc.collect()
+    assert plan() is None and rows() is None and idx.pinned_epochs == []
+    assert torch.cuda.memory_allocated() < held
+
+
+def test_restore_and_recover_build_the_plan_on_cuda(cuda, tmp_path):
+    """A journaled index, crashed, restores on the card: the recovered
+    index's first wave builds its device plan there and answers as the
+    never-crashed index's host path; ``QueryServer.recover`` serves it."""
+    from repro_torch.storage import restore
+    ds = make_airline(300_000, seed=8)
+    live = COAXIndex(ds.data, backend="numpy", device="cuda")
+    vic = COAXIndex(ds.data, device="cuda").attach_durability(tmp_path)
+    for step in range(3):
+        rows = make_airline(500, seed=40 + step).data
+        for idx in (live, vic):
+            idx.insert(rows)
+            idx.delete(np.arange(step * 70, step * 70 + 70))
+    vic.durable.sync()
+    del vic
+    rects = knn_rect_queries(ds.data, 32, 64, seed=9)
+    want = live.query_batch_split(rects)
+    rec = restore(tmp_path, device="cuda")
+    assert rec.backend == "device" and rec._coax_plan is None
+    before = fused_scan.launches
+    got = rec.query_batch_split(rects)
+    assert fused_scan.launches > before
+    assert rec._coax_plan.device.type == "cuda"
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert np.array_equal(g, w), i
+    srv = QueryServer.recover(tmp_path, max_batch=16, device="cuda")
+    qids = srv.submit_many(rects)
+    res = srv.drain()
+    for i, q in enumerate(qids):
+        assert np.array_equal(res[q], want[i]), i
+    srv.close()

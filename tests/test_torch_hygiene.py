@@ -27,8 +27,10 @@ def _modules():
 
 def test_every_module_imports_without_jax_or_repro():
     mods = _modules()
-    assert "repro_torch.engine.device" in mods
-    assert "repro_torch.kernels.fused_scan" in mods
+    for m in ("engine.device", "kernels.fused_scan", "engine.cache",
+              "engine.sharded", "storage", "storage.atomic", "storage.wal",
+              "storage.snapshot", "storage.durability"):
+        assert f"repro_torch.{m}" in mods, m
     code = textwrap.dedent(f"""
         import importlib, sys
         sys.path.insert(0, {SRC!r})
@@ -122,6 +124,9 @@ def test_chip_smoke_rehearsal_and_no_card_exit():
     assert reh.returncode == 3, reh.stderr
     assert "[main]" in reh.stdout and "[segments]" in reh.stdout
     assert "[ops]" in reh.stdout and "[background]" in reh.stdout
+    for phase in ("[cache]", "[sharded]", "[durable]"):
+        assert phase in reh.stdout, phase
+    assert "pinned epoch" in reh.stdout
     assert '"ok"' not in reh.stdout
     if torch.cuda.is_available():
         return
@@ -132,11 +137,45 @@ def test_chip_smoke_rehearsal_and_no_card_exit():
 
 def test_background_compaction_not_ported():
     """Background compaction is ported (its twins are in
-    ``test_torch_lsm.py``); what of it is not yet, the durable handoff
-    (WAL rotation and crash recovery), is absent rather than half there."""
+    ``test_torch_lsm.py``), and so now is its durable handoff (WAL
+    rotation and crash recovery, twins in ``test_torch_storage.py``): an
+    index carries the durability entry points and starts unjournaled."""
     from repro_torch.core import CoaxConfig
     idx = COAXIndex(np.zeros((10, 2), np.float32),
                     CoaxConfig(background_compact=True), device="cpu")
     assert idx.describe()["background"]["enabled"]
-    for name in ("attach_durability", "save", "restore", "durable"):
-        assert not hasattr(idx, name), name
+    for name in ("attach_durability", "save", "restore", "pin_epoch",
+                 "attach_cache"):
+        assert callable(getattr(idx, name)), name
+    assert idx.durable is None and idx.describe()["durability"] is None
+
+
+def test_restore_and_sharded_plane_raise_without_a_card(tmp_path):
+    """The new entry points keep the no-fallback rule: asked for the device
+    backend on ``cuda`` with no card, ``restore``, ``QueryServer.recover``
+    and a sharded plane raise (before reading or building anything), and
+    their host routes stay available."""
+    _no_card()
+    from repro_torch.engine import QueryServer, ShardedCOAX
+    from repro_torch.storage import load_snapshot, restore
+    ds = make_airline(3_000, seed=0)
+    idx = COAXIndex(ds.data, device="cpu")
+    snap = idx.save(tmp_path)
+    for call in (lambda: restore(tmp_path),
+                 lambda: restore(tmp_path, device="cuda"),
+                 lambda: load_snapshot(snap),
+                 lambda: COAXIndex.restore(tmp_path),
+                 lambda: QueryServer.recover(tmp_path, durable=False),
+                 lambda: ShardedCOAX(ds.data, n_shards=2),
+                 lambda: QueryServer(COAXIndex(ds.data), shards=2)):
+        with pytest.raises(RuntimeError, match="no card"):
+            call()
+    rec = restore(tmp_path, backend="numpy")
+    assert rec.device == "cuda" and rec.n_rows == ds.data.shape[0]
+    rect = full_rect(ds.data.shape[1])[None]
+    assert rec.query_batch(rect)[1].size == ds.data.shape[0]
+    plane = ShardedCOAX(ds.data, n_shards=2, backend="numpy")
+    assert plane.query_batch(rect)[1].size == ds.data.shape[0]
+    rec.backend = "device"
+    with pytest.raises(RuntimeError, match="no card"):
+        rec.query_batch(rect)
