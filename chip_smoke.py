@@ -49,6 +49,16 @@ Phases, one line of output each:
             wave latency before, during and after the build, build start
             -> install seconds, where it installed, the replayed tail, the
             main phase's synchronous compaction time for contrast.
+  (cache, sharded and durable as their functions' docstrings say)
+  replicated  the main index handed over with from_state as the primary of
+            a ReplicatedServer (journal under build/, two replicas on the
+            device backend, a FaultPlan that drops, tears, duplicates and
+            reorders frames to replica-0 and crashes replica-1 mid-apply);
+            rounds of a write batch, catch-up and one replica wave, each
+            equal to the primary's host path; a write that fires the size
+            trigger kills the primary mid-rotation; promote(); one wave of
+            the promoted primary and one of the reseeded replica, checked;
+            device memory after the reseed within 5% of before promote().
 Then one JSON line of per-kernel numbers, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``.  Any failed phase raises: the script
 exits non-zero and prints no result.  It also exits non-zero without a
@@ -89,6 +99,19 @@ BG_BATCHES, BG_TRIGGER, BG_EVERY, BG_AFTER, BG_WAIT_S = 14, 8, 2, 8, 900
 # the cache phase's byte budget and hot-rect pool; the sharded phase's shard
 # count; the durable phase's waves (a checkpoint every 4, a rotation after 4)
 CACHE_BYTES, CACHE_HOT, SHARDS, DURABLE_WAVES = 256 << 20, 16, 4, 8
+# the replicated phase: rounds of (write batch, catch-up, replica wave), the
+# round before which the crashed replica is revived, and the fault schedule
+# (the shape of the reference suite's WIRE and REPLICA_CRASH schedules; the
+# primary's first rotation, fired by the size trigger, kills it)
+REP_ROUNDS, REP_REVIVE = 8, 3
+REP_FAULTS = {"ship.replica-0": {1: "drop", 3: "tear", 5: "dup", 8: "reorder"},
+              "replica-1.apply": {4: "crash"},
+              "primary.rotate": {0: "crash"}}
+# a replica is healthy while its last heartbeat is younger than this: a
+# round at 20M rows (writes, catch-up, a wave and its host check) takes
+# several seconds, longer than the server's 5 s default, and a reordered
+# heartbeat can leave a replica a whole round without a fresh one
+REP_HEARTBEAT_S = 60.0
 PAPER_ROWS = 80_000_000       # the paper's airline table
 PASSES = r"count_pass|scan_pass|expand_pass"     # fused_scan's kernels
 
@@ -1560,6 +1583,348 @@ def journaled_run(torch, run, cfg, dev, card_line, directory):
     return dict(launches=served + launches)
 
 
+def replicated_phase(torch, run, cfg, dev, card_line):
+    """The main index, handed over with ``from_state``, as the primary of a
+    ``ReplicatedServer`` with two replicas on the device backend, its
+    journal under the gitignored ``build/``; the body is
+    ``replicated_run``.  The directory is removed whatever happens."""
+    import shutil
+    directory = ROOT / "build" / "replicated_smoke"
+    shutil.rmtree(directory, ignore_errors=True)
+    directory.mkdir(parents=True)
+    try:
+        return replicated_run(torch, run, cfg, dev, card_line, directory)
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+
+
+def dispatches(idx):
+    st = idx.device_stats()
+    return st["dispatches"] if st else 0
+
+
+def wave_segments(idx, rects):
+    """Segments the index's last device wave scanned, one ``fused_scan``
+    launch each on the card: the primary grid, the outlier grid when a rect
+    meets its bounding box, the delta."""
+    plan = idx._coax_plan
+    n = (plan.p_img is not None) + (plan._delta is not None)
+    if plan.o_img is not None and plan.outlier_lo is not None:
+        n += bool(np.all((rects[:, :, 0] <= plan.outlier_hi)
+                         & (rects[:, :, 1] > plan.outlier_lo), axis=1).any())
+    return n
+
+
+def settle(srv, limit=8):
+    """``tick`` until every live replica is at the hub's frontier; returns
+    the frames applied."""
+    applied = 0
+    for _ in range(limit):
+        applied += srv.tick()
+        if all(not r.alive or r.frontier == srv.hub.frontier
+               for r in srv.replicas):
+            return applied
+    raise AssertionError("replicas failed to converge: "
+                         + str([r.describe() for r in srv.replicas]))
+
+
+def replicated_run(torch, run, cfg, dev, card_line, directory):
+    """The primary (the main index's state, no refit, a size trigger that
+    the phase's ninth write fires) serves behind ``ReplicatedServer`` with
+    two replicas on the device backend and ``REP_FAULTS``.  Each of
+    ``REP_ROUNDS`` rounds applies a write batch (2,000 inserts, every 4th
+    batch FD-violating, 500 deletes), ticks until the live replicas reach
+    the hub's frontier and serves one wave through ``query_batch_split``
+    (round-robin over healthy replicas), which must be one device wave of
+    one replica, a ``fused_scan`` launch per segment, and equal to the
+    primary's host path.  Then the ninth write fires the trigger and the
+    injected crash kills the primary inside the rotation; each replica
+    applies the shipped trigger record (its own implicit rotation);
+    ``promote()``; one wave of the promoted primary, a write batch through
+    it, one wave of the reseeded replica, each checked.  Device memory after
+    the reseed must stay within 5% of what was allocated just before
+    ``promote()``: the reseeded replica's old plan must be gone."""
+    import gc
+    import resource
+    from repro_torch import obs
+    from repro_torch.core import COAXIndex
+    from repro_torch.data import make_airline
+    from repro_torch.kernels import fused_scan
+    from repro_torch.replication import ReplicatedServer
+    from repro_torch.runtime import FaultPlan
+    t_phase = time.perf_counter()
+    rects, wave = run["rects"], cfg["wave"]
+    main = run["idx"]
+    main._coax_plan = None                   # earlier phases' device plans
+    run.pop("plan", None)
+    run.pop("srv", None)
+    gc.collect()
+    mem0 = 0
+    if dev != "cpu":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+    batch = cfg["inserts"] + cfg["deletes"]
+    trigger = (main.delta_rows + main.tombstone_count + REP_ROUNDS * batch
+               + cfg["inserts"] // 2)
+    state = main.state()
+    state["config"] = dict(state["config"], background_compact=False,
+                           auto_compact=True, compact_min_delta=trigger,
+                           compact_delta_frac=0.0, drift_threshold=0.0)
+    primary = COAXIndex.from_state(state, device=dev)
+    plan = FaultPlan({k: dict(v) for k, v in REP_FAULTS.items()})
+    tracer = obs.enable_tracing(capacity=1 << 16)
+    try:
+        t0 = time.perf_counter()
+        srv = ReplicatedServer(primary, directory, n_replicas=2, plan=plan,
+                               replica_backend="device", device=dev,
+                               heartbeat_timeout=REP_HEARTBEAT_S)
+        setup_s = time.perf_counter() - t0
+        snap_bytes = primary.durable.last_snapshot_bytes
+        out = replicated_rounds(torch, srv, primary, rects, cfg, dev, mem0)
+    finally:
+        obs.disable_tracing()
+    spans = {}
+    for e in tracer.events():
+        spans.setdefault(e["name"], []).append(e["t1"] - e["t0"])
+    st, pre, post = out["stats"], out["pre"], out["post"]
+    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+    mem = out["mem"]
+    say("replicated", f"primary: from_state of the main index "
+        f"({primary.data.shape[0]:,} base rows), size trigger {trigger:,} "
+        f"delta entries; ReplicatedServer (journal + 2 replicas on the "
+        f"device backend, {dev}) set up in {setup_s:.2f} s (snapshot "
+        f"{snap_bytes / 2**30:.3f} GiB, two seeds); {REP_ROUNDS} rounds of "
+        f"{cfg['inserts']:,} inserts (every 4th batch FD-violating) + "
+        f"{cfg['deletes']} deletes, catch-up, one {wave}-query replica wave; "
+        f"wire to replica-0: {pre['transport_faults']}; replica-1 crashed "
+        f"mid-apply in round {out['crash_round']}, revived before round "
+        f"{REP_REVIVE}; shipped {pre['ship']['shipped_frames']} write frames, "
+        f"{pre['ship']['shipped_bytes']:,} bytes, {pre['ship']['heartbeats']} "
+        f"heartbeats, send retries {pre['ship']['send_retries']}, ship "
+        f"failures {pre['ship']['ship_failures']}; per replica (corrupt, "
+        f"duplicate, catch-up fetches, reseeds, implicit rotations, "
+        f"crashes): {out['per_replica']}; apply {out['apply_ms']:.3f} ms per "
+        f"write frame ({out['frames']} frames in {out['apply_s']:.2f} s of "
+        f"ticks); replica waves {fmt_lat(out['lat'])}, first wave of each "
+        f"replica (plan build, upload) {out['first']}; waves by replica "
+        f"{out['by_replica']}; primary warm-up wave {out['warm_s']:.2f} s")
+    say("replicated", f"the ninth write fired the trigger: primary "
+        f"compaction + rotation {out['primary_rot_s']:.2f} s until the "
+        f"injected crash ({out['crash']}); compact.sync spans (s) "
+        f"{', '.join(f'{x:.2f}' for x in spans.get('compact.sync', []))}; "
+        f"wal.rotate spans (s) "
+        f"{', '.join(f'{x:.2f}' for x in spans.get('wal.rotate', []))}; "
+        f"replicas applied the trigger record and rotated implicitly: "
+        f"{out['rot_s']}; acked {out['acked']}; promote() {out['promote_s']:.2f}"
+        f" s (pump {out['split']['pump']:.2f}, drain_from_disk "
+        f"{out['split']['drain']:.2f}, attach_durability and the rest "
+        f"{out['split']['attach']:.2f}, survivor reseed "
+        f"{out['split']['reseed']:.2f}); failover.promote span "
+        f"{', '.join(f'{x:.2f}' for x in spans.get('failover.promote', []))}"
+        f" s; promoted {out['promoted']} at {out['frontier']} >= acked; "
+        f"promoted primary's first wave {out['promoted_wave_s']:.2f} s, the "
+        f"reseeded replica's first wave after a write batch "
+        f"{out['survivor_wave_s']:.2f} s; after promotion: shipped "
+        f"{post['ship']['shipped_frames']} frames, reseeds "
+        f"{[r['reseeds'] for r in post['replicas']]}, promotions "
+        f"{st['promotions']}, reads {st['reads']}")
+    say("replicated", f"every one of the {out['checked']} waves == the "
+        f"host path at its frontier ({out['hits']:,} hits); fused_scan "
+        f"launches {out['launches']} over the phase's waves (per replica wave "
+        f"{out['wave_launches']}, each >= its segments "
+        f"{out['wave_segments']}); resident images per plan (MiB): "
+        f"{mem['resident']}; device memory: phase start "
+        f"{mem['start'] / 2**20:.1f} MiB, peak with the primary's and two "
+        f"replicas' plans {mem['peak'] / 2**20:.1f} MiB, before promote() "
+        f"{mem['before'] / 2**20:.1f} MiB, after the reseed and both waves "
+        f"{mem['after'] / 2**20:.1f} MiB ({mem['ratio']:.4f} of before); "
+        f"peak host RSS {rss:.2f} GiB; the phase "
+        f"{time.perf_counter() - t_phase:.1f} s; card {card_line}")
+    return dict(launches=out["launches"])
+
+
+def replicated_rounds(torch, srv, primary, rects, cfg, dev, mem0):
+    """The body of ``replicated_run`` once the server is up; ``mem0`` is
+    the device memory allocated at the phase's start."""
+    from repro_torch.data import make_airline
+    from repro_torch.engine import split_hits
+    from repro_torch.kernels import fused_scan
+    wave = cfg["wave"]
+    rng = np.random.default_rng(16)
+    mem = {"start": mem0}
+    res = dict(lat=[], first={}, by_replica={}, wave_launches=[],
+               wave_segments=[], launches=0, checked=0, hits=0, frames=0,
+               apply_s=0.0, crash_round=None)
+
+    def checked_wave(label, serve, index_of, sel, host):
+        """One wave: serve it, count its launches, find which index's plan
+        dispatched it, and hold it against ``host``'s host path."""
+        indexes = index_of()
+        before = {k: dispatches(ix) for k, ix in indexes.items()}
+        n0 = fused_scan.launches
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        got = serve(sel)
+        sync(torch, dev)
+        secs = time.perf_counter() - t0
+        n = fused_scan.launches - n0
+        who = [k for k, ix in indexes.items() if dispatches(ix) > before[k]]
+        if len(who) != 1:
+            raise AssertionError(f"{label}: device waves on {who}")
+        need = wave_segments(indexes[who[0]], sel)
+        if dev != "cpu" and n < need:
+            raise AssertionError(f"{label}: {n} fused_scan launches for "
+                                 f"{need} segments")
+        res["hits"] += check_wave(host, sel, got, split_hits)
+        res["launches"] += n
+        res["checked"] += 1
+        return who[0], secs, n, need
+
+    def replicas():
+        return {r.name: r.index for r in srv.replicas}
+
+    def write(seed, violate):
+        rows = make_airline(cfg["inserts"], seed=seed).data
+        if violate:                          # break FD group 0 (1 = f(0))
+            rows[:, 1] = rows[:, 1] * 3.0 + 1000.0
+        srv.insert(rows)
+        srv.delete(rng.choice(cfg["rows"], cfg["deletes"], replace=False))
+
+    sel = rects[:wave]
+    _, res["warm_s"], _, _ = checked_wave(
+        "primary warm-up", primary.query_batch_split,
+        lambda: {"primary": primary}, sel, primary)
+    for r in range(REP_ROUNDS):
+        write(1600 + r, r % 4 == 3)
+        if r == REP_REVIVE:
+            for rep in srv.replicas:
+                if not rep.alive:
+                    rep.revive()
+        t0 = time.perf_counter()
+        res["frames"] += settle(srv)
+        res["apply_s"] += time.perf_counter() - t0
+        if res["crash_round"] is None and not all(
+                rep.alive for rep in srv.replicas):
+            res["crash_round"] = r
+        sel = rects[(r * wave) % len(rects):][:wave]
+        who, secs, n, need = checked_wave(
+            f"round {r}", srv.query_batch_split, replicas, sel, primary)
+        if who in res["first"]:
+            res["lat"].append(secs)
+        else:
+            res["first"][who] = round(secs, 2)
+        res["by_replica"][who] = res["by_replica"].get(who, 0) + 1
+        res["wave_launches"].append(n)
+        res["wave_segments"].append(need)
+    res["apply_ms"] = res["apply_s"] * 1e3 / max(res["frames"], 1)
+    if res["crash_round"] is None or any(not r.alive for r in srv.replicas):
+        raise AssertionError("replica-1 did not crash and come back")
+    if len(res["by_replica"]) != 2:
+        raise AssertionError(f"waves served by {res['by_replica']}")
+
+    # the ninth write fires the size trigger; the rotation kills the primary
+    epoch0 = primary.epoch
+    t0 = time.perf_counter()
+    try:
+        srv.insert(make_airline(cfg["inserts"], seed=1600 + REP_ROUNDS).data)
+    except RuntimeError as e:
+        res["crash"] = str(e)
+    else:
+        raise AssertionError("the ninth write did not fire the trigger")
+    res["primary_rot_s"] = time.perf_counter() - t0
+    if primary.epoch != epoch0 + 1 or "primary.rotate" not in res["crash"]:
+        raise AssertionError(f"epoch {epoch0} -> {primary.epoch}: "
+                             f"{res['crash']}")
+    res["acked"] = srv.acked
+    srv.kill_primary()
+    res["rot_s"] = {}
+    for rep in srv.replicas:                # the shipped trigger record
+        t0 = time.perf_counter()
+        rep.pump()
+        res["rot_s"][rep.name] = round(time.perf_counter() - t0, 2)
+        if rep.implicit_rotations != 1 or rep.frontier != srv.hub.frontier:
+            raise AssertionError(f"{rep.name}: {rep.describe()}")
+    res["pre"] = srv.stats()
+    res["per_replica"] = {
+        r["name"]: (r["frames_corrupt"], r["frames_duplicate"],
+                    r["catchup_fetches"], r["reseeds"],
+                    r["implicit_rotations"], r["crashes"])
+        for r in res["pre"]["replicas"]}
+    faults = res["pre"]["transport_faults"]
+    if (any(faults[k] != 1 for k in ("drops", "tears", "dups", "reorders"))
+            or res["per_replica"]["replica-0"][0] < 1
+            or res["per_replica"]["replica-0"][2] < 1
+            or res["per_replica"]["replica-1"][5] != 1):
+        raise AssertionError(f"fault schedule not exercised: {faults}, "
+                             f"{res['per_replica']}")
+    plans = {"primary": primary, **replicas()}
+    res["mem"] = mem
+    mem["resident"] = {k: round(plan_bytes(ix._coax_plan) / 2**20, 1)
+                       for k, ix in plans.items()}
+    if dev != "cpu":
+        torch.cuda.synchronize()
+        mem["before"] = torch.cuda.memory_allocated()
+        mem["peak"] = torch.cuda.max_memory_allocated()
+    else:
+        mem["before"] = mem["peak"] = 0
+
+    # promote: time each step of the candidate promote() picks
+    cand = max(srv.replicas, key=lambda r: r.frontier)
+    split = dict(pump=0.0, drain=0.0, reseed=0.0)
+
+    def timed(obj, name, key):
+        fn = getattr(obj, name)
+
+        def wrapper(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                split[key] += time.perf_counter() - t
+        setattr(obj, name, wrapper)
+
+    timed(cand, "pump", "pump")
+    timed(cand, "drain_from_disk", "drain")
+    for rep in srv.replicas:
+        if rep is not cand:
+            timed(rep, "reseed", "reseed")
+    t0 = time.perf_counter()
+    promoted = srv.promote()
+    res["promote_s"] = time.perf_counter() - t0
+    split["attach"] = res["promote_s"] - sum(split.values())
+    res["split"] = split
+    if promoted is not cand or promoted.frontier < res["acked"]:
+        raise AssertionError(f"promoted {promoted.name} at "
+                             f"{promoted.frontier}, acked {res['acked']}")
+    res["promoted"], res["frontier"] = promoted.name, promoted.frontier
+    newp = srv.primary
+    sel = rects[wave:2 * wave]
+    _, res["promoted_wave_s"], _, _ = checked_wave(
+        "promoted primary", newp.query_batch_split,
+        lambda: {"promoted": newp}, sel, newp)
+    write(1700, False)
+    settle(srv)
+    sel = rects[2 * wave:3 * wave]
+    who, res["survivor_wave_s"], _, _ = checked_wave(
+        "reseeded replica", srv.query_batch_split, replicas, sel, newp)
+    if dev != "cpu":
+        torch.cuda.synchronize()
+        mem["after"] = torch.cuda.memory_allocated()
+        mem["ratio"] = mem["after"] / mem["before"]
+        if mem["ratio"] > 1.05:
+            raise AssertionError(
+                f"device memory {mem['after'] / 2**20:.1f} MiB after the "
+                f"reseed, {mem['before'] / 2**20:.1f} MiB before promote(): "
+                f"a replaced plan was not freed")
+    else:
+        mem["after"], mem["ratio"] = 0, 0.0
+    res["stats"] = res["post"] = srv.stats()
+    srv.close()
+    return res
+
+
 def fmt_lat(lat_s):
     """Count, p50, p99 and max of wave latencies in ms."""
     if not lat_s:
@@ -1591,6 +1956,8 @@ def main(argv=None) -> int:
         cache_phase(torch, run, REHEARSE, "cpu", "no card")
         sharded_phase(torch, run, REHEARSE, "cpu", "no card")
         durable_phase(torch, run, REHEARSE, "cpu", "no card")
+        del segs                 # they hold the main plan's images
+        replicated_phase(torch, run, REHEARSE, "cpu", "no card")
         print("chip_smoke: rehearsal on the CPU finished; no card, no "
               "result", file=sys.stderr)
         return 3
@@ -1598,6 +1965,7 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA card", file=sys.stderr)
         return 2
     cfg = FULL
+    t_start = time.perf_counter()
     card_line, kind, count = card_phase(torch)
     build_phase()
     small_errs = kernel_phase(torch, "cuda")
@@ -1609,12 +1977,17 @@ def main(argv=None) -> int:
     cache_phase(torch, run, cfg, "cuda", card_line)
     sharded_phase(torch, run, cfg, "cuda", card_line)
     durable_phase(torch, run, cfg, "cuda", card_line)
+    seg_err = max(s["err"] for s in segs.values())
+    del segs                     # they hold the main plan's images
+    replicated_phase(torch, run, cfg, "cuda", card_line)
+    say("total", f"every phase passed in {time.perf_counter() - t_start:.1f}"
+        " s")
     kernels = [{
         "name": "fused_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fused_scan.cu",
         "replaces": "src/repro/kernels/fused_scan.py:62",
         "launches": run["launches"],
-        "max_abs_err": max(s["err"] for s in segs.values()),
+        "max_abs_err": seg_err,
         "ms": entry["ms"], "plain_ms": entry["plain_ms"],
         "bound_ms": entry["bound_ms"], "bound_by": entry["bound_by"],
         "library_ms": None,

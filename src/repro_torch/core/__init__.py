@@ -6,6 +6,7 @@ COAXIndex / CoaxConfig       — the correlation-aware index (paper §3-§6)
 learn_soft_fds / SoftFDConfig — soft-FD detection & model learning (§5, Alg. 1)
 translate_rect               — query translation (Eq. 2)
 GridFile                     — quantile grid file with sorted dim (§6)
+FullScan / UniformGrid / ColumnFiles / STRTree — the §8.1.3 baselines
 theory                       — §7 closed forms + simulations
 """
 from .types import (
@@ -33,11 +34,16 @@ from .gridfile import (BatchStats, GridFile, batched_searchsorted,
                        fit_cells_per_dim, gather_ranges)
 from .delta import DeltaPlane
 from .coax import COAXIndex, CoaxConfig
+from .baselines import ColumnFiles, FullScan, STRTree, UniformGrid
 from . import theory
 
 __all__ = [
     "COAXIndex",
     "CoaxConfig",
+    "FullScan",
+    "UniformGrid",
+    "ColumnFiles",
+    "STRTree",
     "SoftFDConfig",
     "BayesianLinearModel",
     "LinearModel",

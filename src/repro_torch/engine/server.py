@@ -67,8 +67,8 @@ class QueryServer:
     device : forwarded to ``BatchQueryExecutor`` — the torch device of the
         index's plan (``"cuda"`` by default, ``"cpu"`` for the kernels'
         plain versions).
-    shutdown : an object with a boolean ``requested`` flag to honour: when
-        it flips (SIGTERM on a managed host), ``drain`` finishes the
+    shutdown : a ``runtime.failure.GracefulShutdown`` to honour: when its
+        flag flips (SIGTERM on a managed host), ``drain`` finishes the
         in-flight wave, stops forming new ones, and returns — the caller
         then runs ``close()`` (flush queued writes, fsync the WAL, release
         the handle) and exits cleanly instead of dying mid-wave.

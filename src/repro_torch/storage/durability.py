@@ -81,14 +81,35 @@ class Durability:
         self.wal: Optional[WriteAheadLog] = None
         self._suppress_append = False    # True only while replaying (§7.4)
         self._replaying = False          # defers rotation disk work (§7.5)
+        self._suppress_ship = False      # True while re-journaling the §5.4
+                                         # handoff tail (replicas pull it
+                                         # via catch-up fetch instead, §8.4)
         self.last_snapshot_path: Optional[Path] = None
         self.last_snapshot_wal_seq = 0
         self.last_snapshot_bytes = 0
-        # Replication hook (DESIGN.md §8): rotate_observer(old_epoch,
-        # old_final_seq, new_epoch, relearned) fires inside the §7.5
-        # rotation, after the new epoch's snapshot+WAL are published and
-        # before old WALs die.
+        # Replication hooks (DESIGN.md §8): a ReplicationHub subscribes by
+        # setting these.  frame_observer(epoch, seq, kind, payload) fires on
+        # every journaled record; rotate_observer(old_epoch, old_final_seq,
+        # new_epoch, relearned) fires inside the §7.5 rotation, after the
+        # new epoch's snapshot+WAL are published and before old WALs die.
+        self.frame_observer = None
         self.rotate_observer = None
+
+    def _open_wal(self, path: Path, epoch: int,
+                  start_seq: int = 0) -> WriteAheadLog:
+        """Every WAL this plane appends to routes records through
+        ``_frame_appended`` so a subscribed shipper sees rotations and
+        replays transparently (replayed records are NOT re-shipped — the
+        replica protocol reseeds instead, §8.4)."""
+        wal = WriteAheadLog(path, epoch, start_seq=start_seq)
+        wal.observer = self._frame_appended
+        return wal
+
+    def _frame_appended(self, epoch: int, seq: int, kind: int,
+                        payload: bytes) -> None:
+        if (self.frame_observer is not None and not self._replaying
+                and not self._suppress_ship):
+            self.frame_observer(epoch, seq, kind, payload)
 
     # ------------------------------------------------------------------ #
     @classmethod
@@ -124,7 +145,7 @@ class Durability:
         dur = cls(index, directory, keep=keep, sync_every_op=sync_every_op)
         dur._record_snapshot(write_snapshot(index, directory, wal_seq=0,
                                             keep=keep), 0)
-        dur.wal = WriteAheadLog(wal_file, index.epoch, start_seq=0)
+        dur.wal = dur._open_wal(wal_file, index.epoch, start_seq=0)
         index.durable = dur
         return dur
 
@@ -171,7 +192,7 @@ class Durability:
                 write_snapshot(index, self.directory, wal_seq=0,
                                keep=self.keep), 0)
             old = self.wal
-            self.wal = WriteAheadLog(wal_path(self.directory, index.epoch),
+            self.wal = self._open_wal(wal_path(self.directory, index.epoch),
                                       index.epoch, start_seq=0)
             if old is not None:
                 old.close()
@@ -202,7 +223,10 @@ class Durability:
            prior handoff);
         2. run ``replay_tail`` — the index re-applies the recorded tail
            through its ordinary write paths, which journals each op into
-           the new WAL;
+           the new WAL.  Frame shipping is suppressed for these records: a
+           replica rotates at the trigger record it replayed itself and
+           pulls the re-journaled tail via catch-up ``fetch`` (§8.4), so
+           ``total_writes`` never double-counts the tail;
         3. fsync the new WAL, THEN publish the new epoch snapshot stamped
            past the tail — from here recovery prefers the new pair;
         4. only then delete older WAL files.
@@ -218,8 +242,12 @@ class Durability:
             old = self.wal
             fresh = wal_path(self.directory, index.epoch)
             fresh.unlink(missing_ok=True)  # torn leftovers of a crashed
-            self.wal = WriteAheadLog(fresh, index.epoch, start_seq=0)
-            replay_tail()
+            self.wal = self._open_wal(fresh, index.epoch, start_seq=0)
+            self._suppress_ship = True
+            try:
+                replay_tail()
+            finally:
+                self._suppress_ship = False
             self.wal.sync()
             if old is not None:
                 old.close()
@@ -253,7 +281,7 @@ class Durability:
         old = self.wal
         fresh = wal_path(self.directory, self.index.epoch)
         fresh.unlink(missing_ok=True)      # torn leftovers of a crashed pass
-        self.wal = WriteAheadLog(fresh, self.index.epoch, start_seq=0)
+        self.wal = self._open_wal(fresh, self.index.epoch, start_seq=0)
         for rec in tail_records:
             if rec.kind == OP_INSERT:
                 self.wal.append_insert(rec.rows, rec.ids)
@@ -361,7 +389,7 @@ def _replay(index: COAXIndex, directory: Path, durable: bool,
             os.truncate(wfile, intact)    # drop the torn tail before appending
         dur = Durability(index, directory, keep=keep,
                          sync_every_op=sync_every_op)
-        dur.wal = WriteAheadLog(wfile, index.epoch, start_seq=next_seq)
+        dur.wal = dur._open_wal(wfile, index.epoch, start_seq=next_seq)
         dur._suppress_append = True
         dur._replaying = True
         latest = latest_snapshot(directory)

@@ -27,9 +27,11 @@ treats ANY malformed tail — truncated header, short payload, CRC or magic
 or sequence mismatch — as a torn write: replay stops at the last intact
 record and ``Durability`` truncates the torn bytes before appending again.
 
-Replication (DESIGN.md §8): the WAL is also the replication log.
-``WalFrameCursor`` reads a WAL file's records incrementally from a
-sequence position (the pull/catch-up path): an incomplete tail merely pauses the cursor — the
+Replication hooks (DESIGN.md §8): the WAL is also the replication log.
+``observer`` — when set — sees every appended record ``(epoch, seq, kind,
+payload)`` at append time (the push-shipping hook), and ``WalFrameCursor``
+reads a WAL file's records incrementally from a sequence position (the
+pull/catch-up path): an incomplete tail merely pauses the cursor — the
 bytes may still be in flight from a concurrent appender — so re-reading
 later resumes where it stopped, while genuinely torn bytes pause it
 forever at the last intact record, exactly like ``read_wal``.
@@ -123,6 +125,7 @@ class WriteAheadLog:
         self.next_seq = int(start_seq)
         self.pending_bytes = 0          # appended since the last fsync
         self.pending_records = 0
+        self.observer = None            # callable(epoch, seq, kind, payload)
         fresh = not self.path.exists()
         self.path.parent.mkdir(parents=True, exist_ok=True)
         self._f = open(self.path, "ab")
@@ -146,6 +149,8 @@ class WriteAheadLog:
         g.counter("coax_wal_appends_total", "WAL records appended").inc()
         g.counter("coax_wal_bytes_total", "WAL bytes appended").inc(
             len(hdr) + len(payload))
+        if self.observer is not None:   # ship AFTER the journal has the record
+            self.observer(self.epoch, self.next_seq - 1, kind, payload)
         return self.next_seq - 1
 
     def append_insert(self, rows: np.ndarray, ids: np.ndarray) -> int:

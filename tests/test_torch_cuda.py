@@ -682,3 +682,65 @@ def test_restore_and_recover_build_the_plan_on_cuda(cuda, tmp_path):
     for i, q in enumerate(qids):
         assert np.array_equal(res[q], want[i]), i
     srv.close()
+
+
+def _replicated(tmp_path, backend, dev):
+    """A two-replica ``ReplicatedServer`` on ``backend``/``dev``: a torn
+    frame to replica-0, four write batches whose last fires the size
+    trigger and kills the primary mid-rotation, a promotion, one write
+    through the promoted primary.  Returns the replicas' answers after each
+    batch, after the promotion and after the last write, and the
+    ``fused_scan`` launches of the replicas' waves."""
+    from repro_torch.core import CoaxConfig
+    from repro_torch.replication import ReplicatedServer
+    from repro_torch.runtime import FaultPlan
+    ds = make_airline(200_000, seed=12)
+    cfg = CoaxConfig(compact_min_delta=1_500, compact_delta_frac=0.0)
+    plan = FaultPlan({"ship.replica-0": {2: "tear"},
+                      "primary.rotate": {0: "crash"}})
+    srv = ReplicatedServer(COAXIndex(ds.data, cfg, backend=backend,
+                                     device=dev), tmp_path / backend,
+                           n_replicas=2, plan=plan, replica_backend=backend,
+                           device=dev)
+    rects = knn_rect_queries(ds.data, 32, 64, seed=13)
+    answers, launches = [], 0
+
+    def read():
+        nonlocal launches
+        for _ in range(4):
+            srv.tick()
+        before = fused_scan.launches
+        answers.append(srv.query_batch_split(rects))
+        launches += fused_scan.launches - before
+
+    crashed = None
+    for step in range(4):
+        try:
+            srv.insert(make_airline(400, seed=30 + step).data)
+            srv.delete(np.arange(step * 100, step * 100 + 100))
+        except RuntimeError:
+            crashed = step                   # the rotation's injected crash
+            break
+        read()
+    assert crashed is not None and srv.stats()["transport_faults"]["tears"] == 1
+    srv.kill_primary()
+    promoted = srv.promote()
+    assert promoted.frontier >= srv.acked and promoted.index.device == dev
+    answers.append(srv.primary.query_batch_split(rects))
+    srv.insert(make_airline(300, seed=50).data)
+    read()
+    assert srv.replicas[0].reseeds == 1
+    return answers, launches, crashed
+
+
+def test_replicated_server_on_cuda_equals_numpy_replicas(cuda, tmp_path):
+    """Replicas on the card (each wave ``fused_scan`` launches from the
+    replica's own plan) answer as replicas on the host path, through wire
+    damage, a primary killed mid-rotation and a promotion."""
+    got, launches, crashed = _replicated(tmp_path, "device", "cuda")
+    want, _, ref_crashed = _replicated(tmp_path, "numpy", "cpu")
+    assert crashed == ref_crashed and len(got) == len(want) >= 3
+    assert launches >= 2 * (len(got) - 1)
+    for k, (g, w) in enumerate(zip(got, want)):
+        for i, (a, b) in enumerate(zip(g, w)):
+            assert a.dtype == np.int64 and np.array_equal(a, b), (k, i)

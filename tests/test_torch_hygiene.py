@@ -29,7 +29,11 @@ def test_every_module_imports_without_jax_or_repro():
     mods = _modules()
     for m in ("engine.device", "kernels.fused_scan", "engine.cache",
               "engine.sharded", "storage", "storage.atomic", "storage.wal",
-              "storage.snapshot", "storage.durability"):
+              "storage.snapshot", "storage.durability", "runtime",
+              "runtime.failure", "replication", "replication.frames",
+              "replication.transport", "replication.ship",
+              "replication.replica", "replication.failover",
+              "core.baselines"):
         assert f"repro_torch.{m}" in mods, m
     code = textwrap.dedent(f"""
         import importlib, sys
@@ -124,7 +128,7 @@ def test_chip_smoke_rehearsal_and_no_card_exit():
     assert reh.returncode == 3, reh.stderr
     assert "[main]" in reh.stdout and "[segments]" in reh.stdout
     assert "[ops]" in reh.stdout and "[background]" in reh.stdout
-    for phase in ("[cache]", "[sharded]", "[durable]"):
+    for phase in ("[cache]", "[sharded]", "[durable]", "[replicated]"):
         assert phase in reh.stdout, phase
     assert "pinned epoch" in reh.stdout
     assert '"ok"' not in reh.stdout
@@ -179,3 +183,35 @@ def test_restore_and_sharded_plane_raise_without_a_card(tmp_path):
     rec.backend = "device"
     with pytest.raises(RuntimeError, match="no card"):
         rec.query_batch(rect)
+
+
+def test_replication_raises_without_a_card(tmp_path):
+    """``Replica`` and ``ReplicatedServer`` with their defaults (device
+    backend on ``cuda``) raise before they attach a journal, register a
+    destination or seed a replica; their ``backend="numpy"`` routes work."""
+    _no_card()
+    from repro_torch.replication import (InProcTransport, Replica,
+                                         ReplicatedServer, ReplicationHub)
+    from repro_torch.storage import Durability
+    ds = make_airline(3_000, seed=0)
+    idx = COAXIndex(ds.data, backend="numpy")
+    with pytest.raises(RuntimeError, match="no card"):
+        ReplicatedServer(idx, tmp_path / "srv")
+    assert idx.durable is None and not (tmp_path / "srv").exists()
+    dur = Durability.attach(idx, tmp_path / "dur")
+    hub = ReplicationHub(dur, InProcTransport())
+    with pytest.raises(RuntimeError, match="no card"):
+        Replica("r", hub)
+    with pytest.raises(RuntimeError, match="no card"):
+        Replica("r", hub, backend="device", device="cuda")
+    assert hub.destinations == [] and hub.total_writes == 0
+    rep = Replica("r", hub, backend="numpy")
+    assert rep.index.backend == "numpy" and hub.destinations == ["r"]
+    srv = ReplicatedServer(COAXIndex(ds.data, backend="numpy"),
+                           tmp_path / "ok", n_replicas=1,
+                           replica_backend="numpy")
+    srv.insert(ds.data[:5])
+    srv.tick()
+    rect = full_rect(ds.data.shape[1])[None]
+    assert srv.query_batch(rect)[1].size == ds.data.shape[0] + 5
+    assert srv.stats()["reads"]["replica"] == 1
