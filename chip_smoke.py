@@ -18,6 +18,17 @@ Phases, one line of output each:
             a fused and an unfused m*x + b round apart (disp bitwise); both
             of the last two at n = 2^24 + 1, where the float32 row-id test
             drops row 2^24;
+  lm_serve  the LM serving path: h2o-danube-3-4b at full width and depth
+            (24 layers, 3.84B parameters, bfloat16 weights) behind a
+            Server whose COAX router runs on the device backend; 512
+            requests drawn as launch/serve.py draws them, drained in waves
+            of 8; every admission equal to a numpy-backend twin router,
+            one plan dispatch per admission on a built index, fused_scan
+            launches counted around the drain; the first wave's logits
+            against one forward, a 2-layer full-width prefill against the
+            CPU; prefill and decode ms against their bounds, tokens/s,
+            admission latency, a torch.profiler breakdown; the model is
+            freed (checked) before the next phase;
   main      the serving path at real size: 20M airline rows, 512 knn range
             queries through QueryServer in 64-query waves, inserts and
             deletes between waves, a compaction, one more wave, then one
@@ -71,6 +82,7 @@ prints no result and exits 3.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import re
 import subprocess
@@ -1655,7 +1667,7 @@ def replicated_run(torch, run, cfg, dev, card_line, directory):
     t_phase = time.perf_counter()
     rects, wave = run["rects"], cfg["wave"]
     main = run["idx"]
-    main._coax_plan = None                   # earlier phases' device plans
+    main.release_plan()                      # earlier phases' device plans
     run.pop("plan", None)
     run.pop("srv", None)
     gc.collect()
@@ -1933,6 +1945,311 @@ def fmt_lat(lat_s):
             f"{pct(lat_s, 99):.2f} ms, max {max(lat_s) * 1e3:.2f} ms)")
 
 
+# the lm_serve phase: the serve launcher's default arch at full width and
+# depth, the launcher's traffic at 512 requests (the router builds its
+# index only once 256 are pending), and the bfloat16 bar of the
+# reference's own prefill/forward test
+LM_ARCH, LM_SEED, LM_REQUESTS = "h2o-danube-3-4b", 0, 512
+LM_SERVE = dict(batch_size=8, max_new_tokens=16, cache_len=512, eos_token=0)
+LM_TOL = dict(rtol=0.05, atol=0.08)
+BF16_OPS_PER_S = 989e12       # H100 SXM bfloat16 dense (NVIDIA data sheet)
+
+
+def lm_cost(cfg, b, s, kv_slots, weight_bytes, cache_out_bytes):
+    """(operations, bytes) of one prefill (``s`` > 1 prompt tokens) or one
+    decode step (``s`` = 1, attending ``kv_slots`` valid slots): the dense
+    products, the causal attention the data needs, the last-token unembed;
+    every weight read once, the cache read (decode) and written once."""
+    d, h, kv, hd, ff, L = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                           cfg.d_ff, cfg.n_layers)
+    t = b * s
+    per_layer = 2 * t * d * (h + 2 * kv) * hd + 2 * t * h * hd * d \
+        + 3 * 2 * t * d * ff
+    pairs = s * (s + 1) // 2 if s > 1 else kv_slots
+    attn = 2 * 2 * b * h * hd * pairs
+    ops = L * (per_layer + attn) + 2 * b * cfg.padded_vocab * d
+    kv_read = 0 if s > 1 else L * 2 * b * kv_slots * kv * hd * 2
+    nbytes = (weight_bytes + kv_read + cache_out_bytes + 4 * t
+              + 4 * b * cfg.padded_vocab)
+    return ops, nbytes
+
+
+def lm_bound_ms(ops, nbytes):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def lm_profile(torch, fn, reps):
+    """``reps`` calls of ``fn`` under torch.profiler: (wall ms a call,
+    device-busy ms a call, kernel launches a call, the three kernels with
+    the most device time); None when the trace has no device time."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = []
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = getattr(evt, "self_cuda_time_total", 0.0)
+        if us > 0 and str(getattr(evt, "device_type", "")).endswith("CUDA"):
+            kernels.append((us, evt.count, evt.key))
+    busy = sum(k[0] for k in kernels)
+    if busy <= 0:
+        return None
+    top = ", ".join(f"{k[2][:40]} {k[0] / 1e3 / reps:.3f} ms"
+                    for k in sorted(kernels, reverse=True)[:3])
+    return (wall * 1e3 / reps, busy / 1e3 / reps,
+            sum(k[1] for k in kernels) / reps, top)
+
+
+def lm_serve_phase(torch, dev, card_line):
+    """The LM serving path on the card: ``build_model`` (h2o-danube-3-4b at
+    full width and depth; 2 layers at width 64 in the rehearsal), float32
+    masters from a seeded generator cast once to bfloat16, a ``Server``
+    whose router runs on the device backend, 512 requests drawn as
+    ``launch/serve.py`` draws them, drained.  Checks: every request
+    answered once with its budget of tokens; every admission equal to a
+    numpy-backend twin router fed the same submissions; fused_scan
+    launches around the drain > 0 and one plan dispatch per admission
+    that met a built index; the first wave's prefill + decode logits
+    against a full forward over prompt + fed tokens, and a 2-layer
+    full-width prefill on the card against the CPU, at rtol 0.05 /
+    atol 0.08.  ``release_lm`` frees the model after it returns."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import fused_scan
+    from repro_torch.launch.train import reduced
+    from repro_torch.models import build_model
+    from repro_torch.models.common import cast_params, make_generator
+    from repro_torch.runtime.router import CoaxRouter
+    from repro_torch.runtime.serve_loop import ServeConfig, Server
+
+    t_phase = time.perf_counter()
+    cuda = dev != "cpu"
+    cfg = get_config(LM_ARCH)
+    if not cuda:
+        cfg = reduced(cfg, 2, 64)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    model = cast_params(build_model(cfg, device=dev).init(
+        make_generator(LM_SEED, dev)))
+    sync(torch, dev)
+    init_s = time.perf_counter() - t0
+    n_params = model.param_count()
+    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    mem = torch.cuda.memory_allocated() if cuda else 0
+    say("lm_serve", f"{cfg.name}: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} x {cfg.hd}, "
+        f"window {cfg.window}; {n_params:,} parameters, weights "
+        f"{w_bytes / 1e9:.3f} GB (float32 masters cast once: matrices "
+        f"bfloat16, norm scales float32); init "
+        f"{init_s:.2f} s; device memory {mem / 2**30:.2f} GiB ({card_line})")
+
+    srv = Server(model, ServeConfig(**LM_SERVE), device=dev)
+    router, twin = srv.router, CoaxRouter(backend="numpy")
+    assert router.backend == "device" and router.device == dev
+    rng = np.random.default_rng(LM_SEED)
+    budgets = {}
+    for _ in range(LM_REQUESTS):         # as launch/serve.py draws them
+        plen = int(rng.choice([16, 32, 64, 128]))
+        rid = srv.submit(
+            rng.integers(1, cfg.padded_vocab - 1, plen).astype(np.int32),
+            max_new_tokens=int(rng.integers(4, LM_SERVE["max_new_tokens"])),
+            priority=float(rng.random()))
+        req = router._pool[rid]
+        twin.submit(req.prompt, req.max_new_tokens, req.priority,
+                    arrival=req.arrival)
+        budgets[rid] = req.max_new_tokens
+
+    # admissions: each checked against the twin; a wave's plan dispatches
+    waves_per_admit, admits = [], [0]
+    hits_fn, admit_fn = router._index_hits, router.admit
+
+    def index_hits(rect):
+        plan = router._index._coax_plan
+        before = plan.dispatch_count if plan is not None else 0
+        out = hits_fn(rect)
+        waves_per_admit.append(router._index._coax_plan.dispatch_count
+                               - before)
+        return out
+
+    def admit(batch_size, **kw):
+        got = admit_fn(batch_size, **kw)
+        want = twin.admit(batch_size, **kw)
+        if [r.rid for r in got] != [r.rid for r in want]:
+            raise AssertionError(f"admission {admits[0]} differs from the "
+                                 "numpy router's")
+        admits[0] += 1
+        return got
+    router._index_hits, router.admit = index_hits, admit
+
+    # prefill / decode steps timed (synchronised), the first wave recorded
+    prefills, decodes, first = [], [], dict(logits=[], fed=[])
+    prefill_fn, decode_fn = srv._prefill, srv._decode
+
+    def timed_prefill(batch):
+        sync(torch, dev)
+        t = time.perf_counter()
+        logits, cache = prefill_fn(batch)
+        sync(torch, dev)
+        ms = (time.perf_counter() - t) * 1e3
+        b, s = batch["tokens"].shape
+        cache_bytes = sum(c.numel() * c.element_size()
+                          for c in cache.values())
+        prefills.append((b, s, ms, lm_bound_ms(*lm_cost(
+            cfg, b, s, 0, w_bytes, cache_bytes))))
+        if srv.waves == 0:
+            first["prompts"] = batch["tokens"]
+            first["logits"].append(logits.float().cpu())
+        return logits, cache
+
+    def timed_decode(cache, tok, step):
+        sync(torch, dev)
+        t = time.perf_counter()
+        logits, cache = decode_fn(cache, tok, step)
+        sync(torch, dev)
+        ms = (time.perf_counter() - t) * 1e3
+        b = tok.shape[0]
+        slots = min(step + 1, next(iter(cache.values())).shape[2])
+        decodes.append((ms, lm_bound_ms(*lm_cost(
+            cfg, b, 1, slots, w_bytes,
+            cfg.n_layers * 2 * b * cfg.n_kv_heads * cfg.hd * 2))))
+        if srv.waves == 0:
+            first["fed"].append(tok)
+            first["logits"].append(logits.float().cpu())
+        return logits, cache
+    srv._prefill, srv._decode = timed_prefill, timed_decode
+
+    fused_scan.launches = 0             # ---- the phase's serving run ----
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    results = srv.run_until_drained(max_waves=10 * LM_REQUESTS)
+    sync(torch, dev)
+    drain_s = time.perf_counter() - t0
+    launches = fused_scan.launches      # ---- read right after ----
+
+    rids = [r.rid for r in results]
+    if sorted(rids) != sorted(budgets) or len(router) or len(twin):
+        raise AssertionError(f"{len(rids)} answers for {len(budgets)} "
+                             f"requests ({len(router)} left pending)")
+    for r in results:
+        if r.tokens.size != budgets[r.rid]:
+            raise AssertionError(f"request {r.rid}: {r.tokens.size} tokens "
+                                 f"for a budget of {budgets[r.rid]}")
+    if not waves_per_admit or any(w != 1 for w in waves_per_admit):
+        raise AssertionError(f"plan dispatches per indexed admission: "
+                             f"{sorted(set(waves_per_admit))}")
+    if cuda and launches <= 0:
+        raise AssertionError("the serving run launched no fused_scan kernel")
+
+    # the first wave against one forward over prompt + fed tokens
+    seq = torch.cat([first["prompts"]] + first["fed"], dim=1)
+    with torch.no_grad():
+        full, _ = model.forward({"tokens": seq})
+    s0 = first["prompts"].shape[1]
+    want = full[:, s0 - 1:s0 - 1 + len(first["logits"])].float().cpu()
+    got = torch.cat(first["logits"], dim=1)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **LM_TOL)
+    wave_err = float((got - want).abs().max())
+    del full, want, got, seq
+
+    # where a step's time goes: the first wave's prefill and its decode
+    # steps again, under torch.profiler
+    prof = "not measured (no card)"
+    if cuda:
+        batch = {"tokens": first["prompts"]}
+        p_pre = lm_profile(torch, lambda: model.prefill(
+            batch, LM_SERVE["cache_len"]), 3)
+        _, cache = model.prefill(batch, LM_SERVE["cache_len"])
+        steps = iter(range(len(first["fed"])))
+
+        def one_step():
+            i = next(steps)
+            model.decode_step(cache, first["fed"][i], s0 + i)
+        p_dec = lm_profile(torch, one_step, len(first["fed"]))
+        del cache
+        prof = "; ".join(
+            f"{name}: {p[0]:.3f} ms wall, card busy {p[1]:.3f} ms "
+            f"({100 * p[1] / p[0]:.1f}%), {p[2]:.0f} kernels a call; top: "
+            f"{p[3]}" if p else f"{name}: no device time in the trace"
+            for name, p in (("prefill", p_pre), ("decode step", p_dec)))
+
+    toks = sum(r.tokens.size for r in results)
+    st = router.stats()
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    by_len = {}
+    for b, s, ms, bnd in prefills:
+        if b == LM_SERVE["batch_size"]:
+            by_len.setdefault(s, []).append((ms, bnd))
+    pre = "; ".join(
+        f"{s} tokens: {np.median([m for m, _ in v]):.3f} ms (bound "
+        f"{v[0][1][0]:.3f} by {v[0][1][1]}, {len(v)} waves)"
+        for s, v in sorted(by_len.items()))
+    dec_ms = float(np.median([m for m, _ in decodes]))
+    dec_bound = float(np.median([bnd[0] for _, bnd in decodes]))
+    dec_by = decodes[0][1][1]
+    say("lm_serve", f"{LM_REQUESTS} requests in {srv.waves} waves of "
+        f"{LM_SERVE['batch_size']}: {toks:,} tokens in {drain_s:.2f} s "
+        f"({toks / drain_s:.1f} tokens/s); prefill p50 by padded length "
+        f"(batch {LM_SERVE['batch_size']}): {pre}; decode p50 {dec_ms:.3f} "
+        f"ms/step over {len(decodes)} steps (bound p50 {dec_bound:.3f} by "
+        f"{dec_by}); router admit p50 {st['admit_p50_ms']:.3f} ms, p99 "
+        f"{st['admit_p99_ms']:.3f} ms over {admits[0]} admissions, "
+        f"{st['rebuilds']:.0f} rebuilds, {len(waves_per_admit)} admissions "
+        f"on a built index (one plan dispatch each); fused_scan launches "
+        f"{launches}; peak device memory {peak / 2**30:.2f} GiB "
+        f"({card_line})")
+    say("lm_serve", f"profile of the first wave (torch.profiler): {prof}")
+
+    # 2 layers at full width: prefill of one 32-token prompt, card vs CPU
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    host = cast_params(build_model(cfg2, device="cpu").init(
+        make_generator(LM_SEED + 1, "cpu")))
+    card = cast_params(build_model(cfg2, device=dev))
+    card.load_state_dict(host.state_dict())
+    prompt = torch.from_numpy(np.random.default_rng(LM_SEED + 2).integers(
+        1, cfg.padded_vocab - 1, (1, 32)).astype(np.int32))
+    l_host, _ = host.prefill({"tokens": prompt}, LM_SERVE["cache_len"])
+    l_card, _ = card.prefill({"tokens": prompt.to(dev)},
+                             LM_SERVE["cache_len"])
+    np.testing.assert_allclose(l_card.float().cpu().numpy(),
+                               l_host.float().numpy(), **LM_TOL)
+    two_err = float((l_card.float().cpu() - l_host.float()).abs().max())
+    say("lm_serve", f"checks passed: {len(results)} requests answered once "
+        f"with their budgets; {admits[0]} admissions == numpy twin router; "
+        f"first wave ({first['prompts'].shape[0]} x {s0} prompt, "
+        f"{len(first['logits'])} steps) prefill + decode == forward "
+        f"(max_abs_err {wave_err:.4f}); 2-layer full-width prefill card == "
+        f"CPU (max_abs_err {two_err:.4f}); tolerance rtol 0.05 / atol 0.08; "
+        f"phase {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=launches, admits=admits[0],
+                indexed=len(waves_per_admit))
+
+
+def release_lm(torch, limit=1 << 30):
+    """After ``lm_serve_phase`` returns: collect the model, server and
+    step closures it left in reference cycles, return the memory to the
+    card, and start the next phase's peak count afresh; fails if more
+    than ``limit`` bytes are still allocated (the model was kept)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated()
+    if left > limit:
+        raise AssertionError(f"{left / 2**30:.2f} GiB still allocated after "
+                             "the LM phase: the model was not freed")
+    torch.cuda.reset_peak_memory_stats()
+    say("lm_serve", f"model freed: {left / 2**20:.1f} MiB still allocated")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rehearse", action="store_true",
@@ -1949,6 +2266,7 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(SRC))
     if args.rehearse:
+        lm_serve_phase(torch, "cpu", "no card")
         run = main_phase(torch, "cpu", REHEARSE)
         segs = segments_phase(torch, run, REHEARSE, "cpu")
         ops_phase(torch, run, segs, REHEARSE, "cpu")
@@ -1969,6 +2287,8 @@ def main(argv=None) -> int:
     card_line, kind, count = card_phase(torch)
     build_phase()
     small_errs = kernel_phase(torch, "cuda")
+    lm_serve_phase(torch, "cuda", card_line)
+    release_lm(torch)
     run = main_phase(torch, "cuda", cfg)
     segs = segments_phase(torch, run, cfg, "cuda")
     ops = ops_phase(torch, run, segs, cfg, "cuda")

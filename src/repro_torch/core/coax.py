@@ -197,7 +197,7 @@ class COAXIndex:
         value = str(value)
         if value != self._device:
             self._device = value
-            self._coax_plan = None
+            self.release_plan()
             self.primary.device = value
             self.outlier.device = value
 
@@ -1211,6 +1211,13 @@ class COAXIndex:
     # Device wave pipelining (DESIGN.md §4): submit launches the fused
     # kernel without transferring results; collect is the drain point.
     # ------------------------------------------------------------------ #
+    def release_plan(self) -> None:
+        """Drop the device plan.  The plan refers back to its index, so an
+        owner about to discard this index calls this first: the plan's
+        device tensors are then freed with the index, not at the cyclic
+        GC's next pass."""
+        self._coax_plan = None
+
     def _device_plan_obj(self):
         """Lazily (re)build the §4 COAX device plan for the CURRENT epoch
         grids; compaction swaps the grids, which invalidates by identity.

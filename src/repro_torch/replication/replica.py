@@ -143,11 +143,9 @@ class Replica:
         self.last_heartbeat = (time.time(), time.time(), (epoch, seq))
 
     def _release_index(self) -> None:
-        """Break the cycle between the index about to be replaced and its
-        device plan (each refers to the other), so the plan's device
-        tensors are freed as soon as the index is dropped."""
+        """Drop the device plan of the index about to be replaced."""
         if self.index is not None:
-            self.index._coax_plan = None
+            self.index.release_plan()
 
     def _force_sync_compaction(self) -> None:
         """Replicas always compact SYNCHRONOUSLY, whatever the seeded

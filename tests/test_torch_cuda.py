@@ -744,3 +744,64 @@ def test_replicated_server_on_cuda_equals_numpy_replicas(cuda, tmp_path):
     for k, (g, w) in enumerate(zip(got, want)):
         for i, (a, b) in enumerate(zip(g, w)):
             assert a.dtype == np.int64 and np.array_equal(a, b), (k, i)
+
+
+def test_router_on_cuda_launches_fused_scan_and_admits_as_numpy(cuda):
+    """The LM router on the card: 512 submissions (the index builds at 256
+    pending), admissions in waves of 8 over several bands; every admission
+    equals the numpy router's, and each one against a built index is one
+    wave of ``fused_scan`` launches."""
+    from repro_torch.runtime.router import CoaxRouter
+    dev, host = CoaxRouter(device="cuda"), CoaxRouter(backend="numpy")
+    rng = np.random.default_rng(21)
+    for i in range(512):
+        plen = int(rng.choice([16, 32, 64, 128]))
+        args = (rng.integers(1, 255, plen).astype(np.int32),
+                int(rng.integers(4, 16)), float(rng.random()))
+        for r in (dev, host):
+            r.submit(*args, arrival=float(i))
+    before = fused_scan.launches
+    bands = [(0, 512), (16, 64), (60, 130)]
+    k = 0
+    while len(host):
+        band = bands[k % 3] if k % 4 else (0, np.inf)
+        got = [r.rid for r in dev.admit(8, prompt_len_range=band)]
+        assert got == [r.rid for r in host.admit(8, prompt_len_range=band)]
+        k += 1
+        assert k < 1_000
+    assert len(dev) == 0 and fused_scan.launches > before
+    s_d, s_h = dev.stats(), host.stats()
+    for s in (s_d, s_h):
+        s.pop("admit_p50_ms"), s.pop("admit_p99_ms")
+    assert s_d == s_h
+
+
+def test_tiny_model_prefill_and_decode_on_cuda_match_the_cpu(cuda):
+    """A tiny danube (ring cache that wraps) and a tiny gemma2 (paired
+    caches, softcaps, GeGLU) with the same bfloat16 weights on the card
+    and on the CPU: prefill and 12 decode steps agree at the bfloat16 bar
+    (rtol 0.05 / atol 0.08)."""
+    import dataclasses
+    from conftest import tiny_config
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.common import cast_params, make_generator
+    for arch, split in (("h2o-danube-3-4b", False), ("gemma2-27b", True)):
+        cfg = dataclasses.replace(tiny_config(get_config(arch)),
+                                  split_local_cache=split)
+        cpu = cast_params(build_model(cfg, device="cpu").init(
+            make_generator(0)))
+        gpu = build_model(cfg, device="cuda")
+        cast_params(gpu).load_state_dict(cpu.state_dict())
+        toks = np.random.default_rng(22).integers(0, 200, (2, 24))
+        outs = []
+        for m in (cpu, gpu):
+            t = torch.as_tensor(toks, device=m.device)
+            logits, cache = m.prefill({"tokens": t[:, :12]}, 32)
+            seq = [logits.float().cpu()]
+            for step in range(12, 24):
+                logits, cache = m.decode_step(cache, t[:, step:step + 1], step)
+                seq.append(logits.float().cpu())
+            outs.append(torch.cat(seq, 1))
+        np.testing.assert_allclose(outs[1].numpy(), outs[0].numpy(),
+                                   rtol=0.05, atol=0.08, err_msg=arch)

@@ -33,7 +33,10 @@ def test_every_module_imports_without_jax_or_repro():
               "runtime.failure", "replication", "replication.frames",
               "replication.transport", "replication.ship",
               "replication.replica", "replication.failover",
-              "core.baselines"):
+              "core.baselines", "configs", "models.common",
+              "models.attention", "models.transformer", "models.model",
+              "models.convert", "runtime.router", "runtime.serve_loop",
+              "launch.serve"):
         assert f"repro_torch.{m}" in mods, m
     code = textwrap.dedent(f"""
         import importlib, sys
@@ -128,7 +131,8 @@ def test_chip_smoke_rehearsal_and_no_card_exit():
     assert reh.returncode == 3, reh.stderr
     assert "[main]" in reh.stdout and "[segments]" in reh.stdout
     assert "[ops]" in reh.stdout and "[background]" in reh.stdout
-    for phase in ("[cache]", "[sharded]", "[durable]", "[replicated]"):
+    for phase in ("[cache]", "[sharded]", "[durable]", "[replicated]",
+                  "[lm_serve]"):
         assert phase in reh.stdout, phase
     assert "pinned epoch" in reh.stdout
     assert '"ok"' not in reh.stdout
@@ -215,3 +219,24 @@ def test_replication_raises_without_a_card(tmp_path):
     rect = full_rect(ds.data.shape[1])[None]
     assert srv.query_batch(rect)[1].size == ds.data.shape[0] + 5
     assert srv.stats()["reads"]["replica"] == 1
+
+
+def test_lm_serving_raises_without_a_card():
+    """The LM serving path keeps the no-fallback rule: ``CoaxRouter()``,
+    ``Server(...)`` and ``build_model(cfg)`` with their default device
+    (``cuda``) raise at construction; their ``cpu`` routes work."""
+    _no_card()
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.runtime.router import CoaxRouter
+    from repro_torch.runtime.serve_loop import ServeConfig, Server
+    cfg = get_config("h2o-danube-3-4b")
+    with pytest.raises(RuntimeError, match="no card"):
+        CoaxRouter()
+    with pytest.raises(RuntimeError, match="no card"):
+        build_model(cfg)
+    model = build_model(cfg, device="meta")
+    with pytest.raises(RuntimeError, match="no card"):
+        Server(model, ServeConfig())
+    assert CoaxRouter(backend="numpy").backend == "numpy"
+    assert CoaxRouter(device="cpu").device == "cpu"
