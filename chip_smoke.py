@@ -85,6 +85,7 @@ import argparse
 import gc
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -1974,6 +1975,17 @@ def lm_cost(cfg, b, s, kv_slots, weight_bytes, cache_out_bytes):
     return ops, nbytes
 
 
+def train_bound_ms(n_params, tokens):
+    """(step bound ms, its model-FLOP ms, its optimizer ms) of one train
+    step over ``tokens`` tokens: the useful work 6·N·T at the bfloat16
+    peak (remat's second forward is not counted), then AdamW, which reads
+    p, g, mu and nu and writes p, mu and nu (7 float32 words, 28 bytes a
+    parameter) at the memory rate; the two run one after the other."""
+    flop_ms = 6 * n_params * tokens / BF16_OPS_PER_S * 1e3
+    opt_ms = 28 * n_params / HBM_BYTES_PER_S * 1e3
+    return flop_ms + opt_ms, flop_ms, opt_ms
+
+
 def lm_bound_ms(ops, nbytes):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / BF16_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
@@ -2235,19 +2247,307 @@ def lm_serve_phase(torch, dev, card_line):
                 indexed=len(waves_per_admit))
 
 
-def release_lm(torch, limit=1 << 30):
-    """After ``lm_serve_phase`` returns: collect the model, server and
-    step closures it left in reference cycles, return the memory to the
-    card, and start the next phase's peak count afresh; fails if more
-    than ``limit`` bytes are still allocated (the model was kept)."""
+def release_lm(torch, phase="lm_serve", limit=1 << 30):
+    """After an LM phase returns: collect the model, server and step
+    closures it left in reference cycles, return the memory to the card,
+    and start the next phase's peak count afresh; fails if more than
+    ``limit`` bytes are still allocated (the model was kept)."""
     gc.collect()
     torch.cuda.empty_cache()
     left = torch.cuda.memory_allocated()
     if left > limit:
         raise AssertionError(f"{left / 2**30:.2f} GiB still allocated after "
-                             "the LM phase: the model was not freed")
+                             f"the {phase} phase: the model was not freed")
     torch.cuda.reset_peak_memory_stats()
-    say("lm_serve", f"model freed: {left / 2**20:.1f} MiB still allocated")
+    say(phase, f"model freed: {left / 2**20:.1f} MiB still allocated")
+
+
+# the lm_train phase: the training launcher's sizes (50,000-doc corpus,
+# its curation query, batch 8 x seq 256, lr 1e-3), 8 steps at full width
+# and depth; the card-vs-CPU twin's batch; the launchers' round trip
+LM_TRAIN = dict(docs=50_000, batch=8, seq=256, steps=8, lr=1e-3)
+# the twin's AdamW eps: the first update g / (|g| + eps) multiplies a
+# gradient difference by up to 1 / (4 eps); at the default 1e-8 the two
+# devices' float32 GEMM orders (gradients equal to ~1e-6) moved 80 of the
+# 122,880,000 embedding entries by up to 1.1e-4 (PERF.md, PR 18);
+# 1e-3 bounds the factor at 250
+TWIN_BATCH, TWIN_EPS = 2, 1e-3
+TWIN_TOL = {"float32": (dict(rtol=1e-4, atol=0.0), dict(rtol=0.0, atol=1e-5)),
+            "bfloat16": (LM_TOL, dict(rtol=0.0, atol=LM_TOL["atol"]))}
+
+
+def lm_train_phase(torch, dev, card_line):
+    """The LM training path on the card, in four parts.
+
+    1. Curation: ``make_corpus(50_000)`` and a ``CuratedSelector`` on the
+       device backend; the launcher's query (``token_len`` in [128,
+       32768), quality >= 0.5) is one ``fused_scan`` wave, equal to a
+       numpy-backend twin selector and to the full scan; launches counted
+       around the select.
+    2. ``train()`` of h2o-danube-3-4b at full width and depth (float32
+       masters, remat) for 8 steps over a ``ShardedLoader`` of the curated
+       docs at 8 x 256, no checkpoints: every loss and grad norm finite,
+       grad norms > 0, every parameter moved; step ms, tokens/s, the
+       bound (``train_bound_ms``), the model-FLOP share, AdamW ms (CUDA
+       events), peak memory against the state reckoning, and one more
+       step under torch.profiler (the card's busy share).
+    3. One train step of a 2-layer full-width model on the card and on
+       the CPU from the same weights and batch (AdamW eps ``TWIN_EPS``):
+       float32 activations within rtol 1e-4 (loss, grad norm) / atol 1e-5
+       (parameters), bfloat16 within rtol 0.05 / atol 0.08.
+    4. The launchers at their reduced size: ``launch.train.main`` with
+       ``--curate`` to step 20 (checkpoints every 10 under
+       ``build/train_smoke``), again to 30 (resumes at 20), then
+       ``launch.serve.main --ckpt-dir`` restores step 30 (checked equal
+       to the checkpoint's arrays) and serves; the directory is removed
+       even on failure.
+
+    The rehearsal runs the same at 2 layers and width 64 on the CPU."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data.curation import CuratedSelector, MetaQuery
+    from repro_torch.data.pipeline import ShardedLoader, make_corpus
+    from repro_torch.kernels import fused_scan
+    from repro_torch.launch.train import reduced
+
+    t_phase = time.perf_counter()
+    cuda = dev != "cpu"
+    cfg = get_config(LM_ARCH)
+    if not cuda:
+        cfg = reduced(cfg, 2, 64)
+    s = LM_TRAIN["seq"]
+
+    # ---- 1. curation on the card ----
+    corpus = make_corpus(LM_TRAIN["docs"],
+                         vocab_size=min(cfg.padded_vocab, 32_000))
+    sel = CuratedSelector(corpus, device=dev)
+    twin = CuratedSelector(corpus, backend="numpy")
+    query = MetaQuery(token_len=(s // 2, 32768), quality=(0.5, 1.1))
+    sel.select(query)                   # the plan's first wave (and build)
+    fused_scan.launches = 0             # ---- the curation run ----
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    docs = sel.select(query)
+    sync(torch, dev)
+    select_ms = (time.perf_counter() - t0) * 1e3
+    cur_launches = fused_scan.launches  # ---- read right after ----
+    if not (np.array_equal(docs, twin.select(query))
+            and np.array_equal(docs, sel.select_reference(query))):
+        raise AssertionError("the curated selection differs from the numpy "
+                             "selector's or the full scan's")
+    if cuda and cur_launches <= 0:
+        raise AssertionError("curation launched no fused_scan kernel")
+    say("lm_train", f"curation: {docs.size:,} of {LM_TRAIN['docs']:,} docs "
+        f"(== numpy twin == full scan); index build {sel.build_time:.2f} s, "
+        f"select {select_ms:.3f} ms, fused_scan launches {cur_launches}")
+    del sel, twin
+
+    # ---- 2. full width and depth ----
+    trained = train_full(torch, dev, cfg, corpus, docs, card_line)
+    say("lm_train", trained)
+    if cuda:
+        release_lm(torch, "lm_train")
+
+    # ---- 3. card against the CPU, 2 layers at full width ----
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    loader = ShardedLoader(corpus, batch_size=TWIN_BATCH, seq_len=s,
+                           doc_ids=docs, seed=1)
+    batch = next(iter(loader))
+    loader.close()
+    errs = []
+    for dtype in ("float32", "bfloat16"):
+        got, p_got = train_twin(torch, cfg2, batch, dev, dtype)
+        want, p_want = train_twin(torch, cfg2, batch, "cpu", dtype)
+        tol, ptol = TWIN_TOL[dtype]
+        for k in want:
+            np.testing.assert_allclose(got[k], want[k], err_msg=k, **tol)
+        err = 0.0
+        for n in p_want:
+            np.testing.assert_allclose(p_got[n].numpy(), p_want[n].numpy(),
+                                       err_msg=n, **ptol)
+            err = max(err, float((p_got[n] - p_want[n]).abs().max()))
+        errs.append(f"{dtype}: loss {got['loss']:.6f} vs {want['loss']:.6f}, "
+                    f"grad norm {got['grad_norm']:.6f} vs "
+                    f"{want['grad_norm']:.6f}, parameters max_abs_err "
+                    f"{err:.3g}")
+        del p_got, p_want
+    say("lm_train", f"2-layer train step at d_model {cfg.d_model} "
+        f"({TWIN_BATCH} x {s}, AdamW eps {TWIN_EPS}), {dev} vs CPU: "
+        f"{'; '.join(errs)}")
+
+    # ---- 4. the launchers: train, resume, serve ----
+    launchers(torch, dev, cuda)
+    say("lm_train", f"phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def train_twin(torch, cfg, batch, dev, dtype):
+    """One ``make_train_step`` step of ``cfg`` on ``dev`` at activation
+    dtype ``dtype``, from seeded CPU weights: (loss and grad norm as
+    floats, the updated parameters on the CPU)."""
+    import repro_torch.models.common as common
+    from repro_torch.models import build_model
+    from repro_torch.models.common import make_generator
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.runtime.steps import make_train_step
+    keep = common.DTYPE
+    common.DTYPE = getattr(torch, dtype)
+    try:
+        host = build_model(cfg, device="cpu").init(make_generator(LM_SEED))
+        model = build_model(cfg, device=dev)
+        model.load_state_dict(host.state_dict())
+        del host
+        state = adamw_init(model)
+        m = make_train_step(model, AdamWConfig(lr=LM_TRAIN["lr"],
+                                               eps=TWIN_EPS))(state, batch)
+        out = {k: float(m[k]) for k in ("loss", "grad_norm")}
+        params = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    finally:
+        common.DTYPE = keep
+    return out, params
+
+
+def train_full(torch, dev, cfg, corpus, docs, card_line):
+    """``train()`` for 8 steps at ``cfg``'s full width and depth; returns
+    the line to print.  The model, the AdamW state and the loader are
+    gone when it returns."""
+    import repro_torch.runtime.steps as steps
+    from repro_torch.data.pipeline import ShardedLoader
+    from repro_torch.models import build_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.train_loop import TrainLoopConfig, train
+    cuda = dev != "cpu"
+    b, s = LM_TRAIN["batch"], LM_TRAIN["seq"]
+    model = build_model(cfg, device=dev)
+    n_params = model.param_count()
+    state_gib = 16 * n_params / 2**30          # masters, grads, mu, nu
+    samples = {}
+    init = model.init
+
+    def init_and_sample(generator):             # train() inits the model
+        init(generator)
+        for n, p in model.named_parameters():
+            samples[n] = p.detach().flatten()[:4096].clone()
+        return model
+    model.init = init_and_sample
+
+    opt_events, update = [], steps.adamw_update
+
+    def timed_update(*a, **k):
+        if not cuda:
+            return update(*a, **k)
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        out = update(*a, **k)
+        e1.record()
+        opt_events.append((e0, e1))
+        return out
+    loader = ShardedLoader(corpus, batch_size=b, seq_len=s, doc_ids=docs)
+    it = iter(loader)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    steps.adamw_update = timed_update
+    logs = []
+    try:
+        out = train(model, it, AdamWConfig(lr=LM_TRAIN["lr"]),
+                    TrainLoopConfig(steps=LM_TRAIN["steps"], ckpt_dir=None,
+                                    log_every=1), log_fn=logs.append)
+    finally:
+        steps.adamw_update = update
+    sync(torch, dev)
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    hist = out["history"]
+    losses = [h["loss"] for h in hist]
+    norms = [h["grad_norm"] for h in hist]
+    if (len(hist) != LM_TRAIN["steps"] or out["restarts"]
+            or not np.isfinite(losses + norms).all() or min(norms) <= 0):
+        raise AssertionError(f"training went wrong: {logs}")
+    still = [n for n, p in model.named_parameters()
+             if torch.equal(p.detach().flatten()[:4096], samples[n])]
+    if still:
+        raise AssertionError(f"parameters that did not move: {still[:5]}")
+    step_ms = [h["dt"] * 1e3 for h in hist[1:]]
+    p50 = float(np.median(step_ms))
+    opt_ms = [e0.elapsed_time(e1) for e0, e1 in opt_events]
+    tokens = b * s
+    bound, flop_ms, adam_ms = train_bound_ms(n_params, tokens)
+
+    prof = "not measured (no card)"
+    if cuda:
+        step_fn = steps.make_train_step(model, AdamWConfig(lr=LM_TRAIN["lr"]))
+        batch = next(it)
+        p = lm_profile(torch, lambda: step_fn(out["opt_state"], batch), 1)
+        prof = (f"{p[0]:.1f} ms wall, card busy {p[1]:.1f} ms "
+                f"({100 * p[1] / p[0]:.1f}%), {p[2]:.0f} kernels; top: {p[3]}"
+                if p else "no device time in the trace")
+        del step_fn, batch
+    loader.close()
+    del out, model, samples, it
+    return (f"{cfg.name} ({cfg.n_layers} layers, "
+            f"d_model {cfg.d_model}, {n_params:,} parameters, float32 "
+            f"masters, remat {cfg.remat!r}), {LM_TRAIN['steps']} steps of "
+            f"{b} x {s} on the curated docs: loss {losses[0]:.4f} -> "
+            f"{losses[-1]:.4f}, grad norm {norms[0]:.4f} -> {norms[-1]:.4f}, "
+            f"every parameter moved; step p50 {p50:.1f} ms, max "
+            f"{max(step_ms):.1f} ms (steps 1-{len(hist) - 1}; the first "
+            f"{hist[0]['dt'] * 1e3:.1f} ms); {tokens / p50 * 1e3:.0f} "
+            f"tokens/s; bound {bound:.1f} ms (6NT {flop_ms:.1f} ms at "
+            f"989 TFLOP/s + AdamW {adam_ms:.1f} ms at 3.35 TB/s), "
+            f"model-FLOP share {100 * flop_ms / p50:.1f}%; AdamW update "
+            + (f"p50 {np.median(opt_ms):.1f} ms, max {max(opt_ms):.1f} ms "
+               f"(CUDA events)" if opt_ms else "not measured (no card)")
+            + f"; peak device memory {peak / 2**30:.2f} GiB against the "
+            f"state's {state_gib:.2f} GiB (16 bytes a parameter); one step "
+            f"profiled: {prof} ({card_line})")
+
+
+def launchers(torch, dev, cuda):
+    """The training launcher to step 20, resumed to 30, then the serving
+    launcher restoring step 30 from the same directory."""
+    from repro_torch.launch import serve as serve_launch
+    from repro_torch.launch import train as train_launch
+    from repro_torch.runtime.checkpoint import latest_step
+    directory = ROOT / "build" / "train_smoke"
+    shutil.rmtree(directory, ignore_errors=True)
+    width = "256" if cuda else "64"
+    common = ["--arch", LM_ARCH, "--reduced-layers", "2", "--reduced-width",
+              width, "--device", dev]
+    args = common + ["--curate", "--ckpt-every", "10", "--ckpt-dir",
+                     str(directory)]
+    try:
+        t0 = time.perf_counter()
+        first = train_launch.main(args + ["--steps", "20"])
+        second = train_launch.main(args + ["--steps", "30"])
+        train_s = time.perf_counter() - t0
+        if (first["final_step"] != 20 or second["final_step"] != 30
+                or second["history"][0]["step"] != 20
+                or latest_step(directory) != 30):
+            raise AssertionError("the training launcher did not resume at "
+                                 "step 20 and stop at 30")
+        srv = serve_launch.main(common + ["--ckpt-dir", str(directory),
+                                          "--requests", "16"])
+        with np.load(directory / "step_00000030" / "arrays.npz") as z:
+            for name, p in srv.model.named_parameters():
+                parts = name.split(".")
+                if parts[0] == "layers":
+                    key = "//".join(["params", "layers"] + parts[2:])
+                    want = z[key][int(parts[1])]
+                else:
+                    key = "//".join(["params"] + parts)
+                    want = z[key]
+                want = torch.from_numpy(want).to(p.dtype)
+                if not torch.equal(p.detach().cpu(), want):
+                    raise AssertionError(f"served {name} is not the "
+                                         "checkpoint's")
+        served = srv.waves
+        del srv
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    say("lm_train", f"launchers: train to step 20 (checkpoints every 10), "
+        f"resumed at 20 to 30, in {train_s:.1f} s (loss "
+        f"{first['history'][0]['loss']:.4f} -> "
+        f"{second['history'][-1]['loss']:.4f}); serve restored step 30 "
+        f"(every parameter == the checkpoint's, cast) and served "
+        f"{served} waves; build/train_smoke removed")
 
 
 def main(argv=None) -> int:
@@ -2267,6 +2567,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(SRC))
     if args.rehearse:
         lm_serve_phase(torch, "cpu", "no card")
+        lm_train_phase(torch, "cpu", "no card")
         run = main_phase(torch, "cpu", REHEARSE)
         segs = segments_phase(torch, run, REHEARSE, "cpu")
         ops_phase(torch, run, segs, REHEARSE, "cpu")
@@ -2289,6 +2590,8 @@ def main(argv=None) -> int:
     small_errs = kernel_phase(torch, "cuda")
     lm_serve_phase(torch, "cuda", card_line)
     release_lm(torch)
+    lm_train_phase(torch, "cuda", card_line)
+    release_lm(torch, "lm_train")
     run = main_phase(torch, "cuda", cfg)
     segs = segments_phase(torch, run, cfg, "cuda")
     ops = ops_phase(torch, run, segs, cfg, "cuda")

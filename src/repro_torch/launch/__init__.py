@@ -1,2 +1,3 @@
-"""Launchers of the port: ``serve`` (the COAX-routed serving launcher) and
-``train`` (only ``reduced`` until the training slice brings its ``main``)."""
+"""Launchers of the port: ``train`` (the fault-tolerant train loop, COAX
+curation, checkpoints) and ``serve`` (the COAX-routed serving launcher,
+restoring the trainer's checkpoints)."""

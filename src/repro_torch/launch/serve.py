@@ -3,12 +3,13 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-3-4b \
         --requests 64 [--reduced-layers 4] [--device cuda]
 
-Initialises the model from ``--seed`` (float32 masters cast once to the
-activation dtype), spins up the Server with a CoaxRouter on the same
-device and drains a synthetic request stream, reporting wave composition
-and token throughput.  ``--reduced-layers 0`` serves the full config.
-``--ckpt-dir`` (restoring trained weights) needs the training slice's
-checkpointer and optimizer state; until then it is refused.
+Initialises the model from ``--seed``, or restores the float32 masters
+of the newest checkpoint under ``--ckpt-dir`` (the training launcher's,
+in the reference's format: the ``params//*`` leaves alone, no optimizer
+state), casts them once to the activation dtype, spins up the Server
+with a CoaxRouter on the same device and drains a synthetic request
+stream, reporting wave composition and token throughput.
+``--reduced-layers 0`` serves the full config.  Returns the Server.
 """
 from __future__ import annotations
 
@@ -20,6 +21,8 @@ import numpy as np
 from ..configs import get_config, list_configs
 from ..models import build_model
 from ..models.common import cast_params, make_generator
+from ..models.convert import reference_tree
+from ..runtime.checkpoint import Checkpointer, latest_step
 from ..runtime.serve_loop import ServeConfig, Server
 from .train import reduced
 
@@ -37,16 +40,18 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.ckpt_dir:
-        ap.error("--ckpt-dir needs runtime/checkpoint.py and the optimizer "
-                 "state, which the port does not have yet (ROADMAP queue 1, "
-                 "item 3(a))")
 
     cfg = get_config(args.arch)
     if args.reduced_layers:
         cfg = reduced(cfg, args.reduced_layers, args.reduced_width)
     model = build_model(cfg, device=args.device)
-    cast_params(model.init(make_generator(args.seed, args.device)))
+    model.init(make_generator(args.seed, args.device))
+    if args.ckpt_dir and latest_step(args.ckpt_dir) is not None:
+        ck = Checkpointer(args.ckpt_dir)
+        ck.restore({"params": reference_tree(model)})
+        print(f"[serve] restored step {ck.manifest()['step']} from "
+              f"{args.ckpt_dir}")
+    cast_params(model)
 
     srv = Server(model, ServeConfig(
         batch_size=args.batch_size, max_new_tokens=args.max_new,
@@ -65,6 +70,7 @@ def main(argv=None):
     toks = sum(r.tokens.size for r in results)
     print(f"[serve] {len(results)} responses, {srv.waves} waves, "
           f"{toks} tokens in {dt:.1f}s ({toks/max(dt,1e-9):.0f} tok/s)")
+    return srv
 
 
 if __name__ == "__main__":

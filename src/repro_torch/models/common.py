@@ -21,6 +21,10 @@ compute something else:
   sqrt(d_model) scale is rounded to the activation dtype first, as
   JAX's weakly typed scalar is.
 - GELU is the tanh approximation (``jax.nn.gelu``'s default).
+- The losses gather the label's logit with int64 indices and keep the
+  z-loss term; ``chunked_softmax_cross_entropy`` puts each sequence chunk
+  under ``torch.utils.checkpoint`` as the reference puts it under
+  ``jax.checkpoint``.
 """
 from __future__ import annotations
 
@@ -30,11 +34,13 @@ from typing import Dict, Mapping, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 __all__ = ["DTYPE", "PARAM_DTYPE", "dense_init", "embedding_init",
            "rmsnorm_init", "cast_params", "rmsnorm", "softcap", "mlp_init",
            "mlp_apply", "silu", "gelu", "rope_freqs", "rope_tables",
-           "rotate", "apply_rope", "embed", "unembed", "make_generator"]
+           "rotate", "apply_rope", "embed", "unembed", "make_generator",
+           "softmax_cross_entropy", "chunked_softmax_cross_entropy"]
 
 DTYPE = torch.bfloat16       # activation/weight dtype on the wire
 PARAM_DTYPE = torch.float32  # master weights
@@ -216,3 +222,48 @@ def unembed(params_w: torch.Tensor, x: torch.Tensor,
             cap: Optional[float] = None):
     logits = x @ params_w.to(x.dtype).T
     return softcap(logits.float(), cap)
+
+
+# --------------------------------------------------------------------------- #
+# losses
+# --------------------------------------------------------------------------- #
+
+def _ce_terms(logits: torch.Tensor, labels: torch.Tensor, z_loss: float):
+    """Per-token ``lse - logit[label]`` (+ ``z_loss * lse**2``), float32."""
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.take_along_dim(logits, labels.long()[..., None], dim=-1)[..., 0]
+    loss = lse - ll
+    if z_loss:
+        loss = loss + z_loss * lse.square()
+    return loss
+
+
+def _ce_chunk(x, w_un, labels, cap, z_loss):
+    return _ce_terms(unembed(w_un, x, cap=cap), labels, z_loss).sum()
+
+
+def chunked_softmax_cross_entropy(x: torch.Tensor, w_un: torch.Tensor,
+                                  labels: torch.Tensor, *,
+                                  cap: Optional[float] = None,
+                                  z_loss: float = 1e-4, seq_chunk: int = 512):
+    """Token-mean cross-entropy that never holds the full (B, S, V) logits:
+    the unembed + CE runs one sequence chunk at a time, each recomputed in
+    the backward pass (peak logits memory O(seq_chunk * V)).  With
+    ``S <= seq_chunk`` or ``S % seq_chunk`` the logits are made whole."""
+    b, s, d = x.shape
+    if s % seq_chunk or s <= seq_chunk:
+        return softmax_cross_entropy(unembed(w_un, x, cap=cap), labels, z_loss)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lo in range(0, s, seq_chunk):
+        hi = lo + seq_chunk
+        total = total + checkpoint(_ce_chunk, x[:, lo:hi], w_un,
+                                   labels[:, lo:hi], cap, z_loss,
+                                   use_reentrant=False,
+                                   preserve_rng_state=False)
+    return total / (b * s)
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          z_loss: float = 1e-4):
+    """Token-mean CE with an optional z-loss regulariser."""
+    return _ce_terms(logits.float(), labels, z_loss).mean()

@@ -1,14 +1,19 @@
 """The model facade: one ``nn.Module`` per architecture config exposing
 
-    init / forward / prefill / decode_step / init_cache / param_count
+    init / forward / loss / prefill / decode_step / init_cache / param_count
 
-so the server, the launcher and the tests never dispatch on family
-themselves.  The port of ``repro.models.model`` for the dense family;
-the parameters live in the module (the reference passes a params tree).
+so the trainer, the server, the launchers and the tests never dispatch
+on family themselves.  The port of ``repro.models.model`` for the dense
+family; the parameters live in the module (the reference passes a params
+tree).
 
 ``build_model`` refuses a family or feature this port does not have yet
 (moe, ssm, hybrid, encdec, vlm, MLA), naming the ROADMAP item; it never
-falls back to another family.  ``loss`` waits for the training slice.
+falls back to another family.
+
+A model that trains keeps its float32 masters (never ``cast_params`` it):
+the forward casts each weight on use, so the gradients reach the masters
+in float32, as ``jax.grad`` gives them.
 """
 from __future__ import annotations
 
@@ -19,7 +24,8 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from . import transformer as tf
-from .common import embedding_init, rmsnorm_init
+from .common import (chunked_softmax_cross_entropy, embedding_init,
+                     rmsnorm_init)
 
 __all__ = ["Model", "build_model"]
 
@@ -88,6 +94,17 @@ class Model(nn.Module):
         return tf.decoder_forward(self, self.cfg, batch["tokens"],
                                   chunk=chunk or self.cfg.attn_chunk,
                                   logits_slice=logits_slice)
+
+    def loss(self, batch: Dict[str, torch.Tensor], *,
+             chunk: Optional[int] = None) -> torch.Tensor:
+        """Token-mean CE of ``batch["labels"]`` (B, S) through the chunked
+        unembed, plus 0.01 x the auxiliary loss; a 0-d float32 tensor."""
+        cfg = self.cfg
+        hidden, aux = self.forward(batch, chunk=chunk, logits_slice="hidden")
+        w_un = self.embed if cfg.tie_embeddings else self.unembed
+        ce = chunked_softmax_cross_entropy(hidden, w_un, batch["labels"],
+                                           cap=cfg.final_softcap)
+        return ce + 0.01 * aux
 
     # --------------------------- serving -------------------------------- #
     @torch.no_grad()

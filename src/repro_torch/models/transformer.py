@@ -14,11 +14,13 @@ queue 1); ``models.model.build_model`` refuses those configs.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from . import common
@@ -167,11 +169,20 @@ def decoder_forward(model, cfg: ModelConfig, tokens, *, chunk=1024,
 
     logits_slice: None -> full logits; "last" -> last position only;
     "hidden" -> the final-normed hidden states.  Returns (logits, aux).
+    With ``cfg.remat == "full"`` and autograd recording, each layer runs
+    under ``torch.utils.checkpoint``.
     """
     x = embed(model.embed, tokens, scale_by_dim=cfg.sandwich_norm)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    layer = _attn_layer_fwd
+    if cfg.remat == "full" and torch.is_grad_enabled():
+        # each layer keeps only its input for the backward pass, which runs
+        # the layer's forward again (the reference's jax.checkpoint)
+        layer = functools.partial(checkpoint, _attn_layer_fwd,
+                                  use_reentrant=False,
+                                  preserve_rng_state=False)
     for p_l, limit in zip(model.layers, _window_limits(cfg, cfg.n_layers)):
-        x, aux_l = _attn_layer_fwd(p_l, cfg, x, limit, chunk=chunk)
+        x, aux_l = layer(p_l, cfg, x, limit, chunk=chunk)
         aux = aux + aux_l
     x = rmsnorm(x, model.final_norm, cfg.rms_eps)
     if logits_slice == "hidden":

@@ -805,3 +805,75 @@ def test_tiny_model_prefill_and_decode_on_cuda_match_the_cpu(cuda):
             outs.append(torch.cat(seq, 1))
         np.testing.assert_allclose(outs[1].numpy(), outs[0].numpy(),
                                    rtol=0.05, atol=0.08, err_msg=arch)
+
+
+def _train_twin(cfg, batch, dev, seed=0):
+    """One ``make_train_step`` step of ``cfg`` on ``dev`` from the seeded
+    CPU weights: (metrics as floats, the updated parameters on the CPU)."""
+    from repro_torch.models import build_model
+    from repro_torch.models.common import make_generator
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.runtime.steps import make_train_step
+    host = build_model(cfg, device="cpu").init(make_generator(seed))
+    model = build_model(cfg, device=dev)
+    model.load_state_dict(host.state_dict())
+    del host
+    state = adamw_init(model)
+    m = make_train_step(model, AdamWConfig(lr=1e-3, eps=1e-3))(state, batch)
+    out = {k: float(m[k]) for k in ("loss", "grad_norm")}
+    return out, {n: p.detach().cpu() for n, p in model.named_parameters()}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_two_layer_full_width_train_step_on_cuda_matches_the_cpu(
+        cuda, monkeypatch, dtype):
+    """h2o-danube-3-4b cut to 2 layers, full width (d_model 3840, vocab
+    32,000): one train step (loss, backward through remat, AdamW) from the
+    same weights and batch on the card and on the CPU.  float32
+    activations: loss and grad norm within rtol 1e-4, updated parameters
+    within atol 1e-5; bfloat16 (the shipped dtype): rtol 0.05 /
+    atol 0.08.  AdamW's eps is 1e-3: the first update g / (|g| + eps)
+    multiplies a gradient difference by up to 1 / (4 eps), so at the
+    default 1e-8 the two devices' float32 GEMM orders move a few of the
+    122,880,000 embedding entries by ~1e-4."""
+    import dataclasses
+    import repro_torch.models.common as p_common
+    from repro_torch.configs import get_config
+    monkeypatch.setattr(p_common, "DTYPE", getattr(torch, dtype))
+    cfg = dataclasses.replace(get_config("h2o-danube-3-4b"), n_layers=2)
+    rng = np.random.default_rng(23)
+    toks = rng.integers(0, cfg.vocab_size, (2, 257)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    got, p_got = _train_twin(cfg, batch, "cuda")
+    want, p_want = _train_twin(cfg, batch, "cpu")
+    tol = (dict(rtol=1e-4, atol=0) if dtype == "float32"
+           else dict(rtol=0.05, atol=0.08))
+    ptol = dict(rtol=0, atol=1e-5 if dtype == "float32" else 0.08)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], err_msg=k, **tol)
+    for n in p_want:
+        np.testing.assert_allclose(p_got[n].numpy(), p_want[n].numpy(),
+                                   err_msg=n, **ptol)
+
+
+def test_curation_on_cuda_launches_fused_scan_and_selects_as_numpy(cuda):
+    """The training launcher's corpus (50,000 docs) on the card: each
+    ``select`` is one device wave with ``fused_scan`` launches, equal to
+    the numpy backend and to the full scan, as is a 3-stage curriculum."""
+    from repro_torch.data.curation import CuratedSelector, MetaQuery
+    from repro_torch.data.pipeline import make_corpus
+    corpus = make_corpus(50_000, vocab_size=32_000)
+    dev, host = CuratedSelector(corpus), CuratedSelector(corpus,
+                                                         backend="numpy")
+    assert dev.index.device == "cuda"
+    queries = [MetaQuery(token_len=(128, 32768), quality=(0.5, 1.1)),
+               MetaQuery(token_len=(512, 4096), quality=(0.8, 1.1)),
+               MetaQuery(compute_cost=(1000, 5000), domain_id=(0, 8))]
+    for q in queries:
+        before = fused_scan.launches
+        got = dev.select(q)
+        assert fused_scan.launches > before
+        assert np.array_equal(got, host.select(q))
+        assert np.array_equal(got, dev.select_reference(q))
+    cur, want = dev.curriculum(queries), host.curriculum(queries)
+    assert all(np.array_equal(cur[i], want[i]) for i in want)

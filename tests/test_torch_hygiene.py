@@ -36,7 +36,9 @@ def test_every_module_imports_without_jax_or_repro():
               "core.baselines", "configs", "models.common",
               "models.attention", "models.transformer", "models.model",
               "models.convert", "runtime.router", "runtime.serve_loop",
-              "launch.serve"):
+              "launch.serve", "optim", "optim.adamw", "runtime.steps",
+              "runtime.checkpoint", "runtime.train_loop", "data.pipeline",
+              "data.curation", "launch.train"):
         assert f"repro_torch.{m}" in mods, m
     code = textwrap.dedent(f"""
         import importlib, sys
@@ -132,7 +134,7 @@ def test_chip_smoke_rehearsal_and_no_card_exit():
     assert "[main]" in reh.stdout and "[segments]" in reh.stdout
     assert "[ops]" in reh.stdout and "[background]" in reh.stdout
     for phase in ("[cache]", "[sharded]", "[durable]", "[replicated]",
-                  "[lm_serve]"):
+                  "[lm_serve]", "[lm_train]"):
         assert phase in reh.stdout, phase
     assert "pinned epoch" in reh.stdout
     assert '"ok"' not in reh.stdout
@@ -240,3 +242,26 @@ def test_lm_serving_raises_without_a_card():
         Server(model, ServeConfig())
     assert CoaxRouter(backend="numpy").backend == "numpy"
     assert CoaxRouter(device="cpu").device == "cpu"
+
+
+def test_lm_training_raises_without_a_card(tmp_path):
+    """The training path keeps the no-fallback rule: ``CuratedSelector``
+    and the training launcher with their default device (``cuda``) raise
+    before they build an index, a model or a checkpoint; their ``cpu``
+    and numpy routes work."""
+    _no_card()
+    from repro_torch.data.curation import CuratedSelector, MetaQuery
+    from repro_torch.data.pipeline import make_corpus
+    from repro_torch.launch import train
+    corpus = make_corpus(500, vocab_size=64)
+    with pytest.raises(RuntimeError, match="no card"):
+        CuratedSelector(corpus)
+    ck = tmp_path / "ck"
+    with pytest.raises(RuntimeError, match="no card"):
+        train.main(["--arch", "h2o-danube-3-4b", "--reduced-layers", "2",
+                    "--reduced-width", "64", "--curate", "--steps", "1",
+                    "--ckpt-dir", str(ck)])
+    assert not ck.exists()
+    q = MetaQuery(token_len=(128, 32768))
+    assert np.array_equal(CuratedSelector(corpus, device="cpu").select(q),
+                          CuratedSelector(corpus, backend="numpy").select(q))

@@ -337,11 +337,30 @@ def test_serve_launcher_on_the_cpu(capsys):
     assert "12 requests queued" in out and "12 responses" in out
 
 
-def test_serve_launcher_refuses_a_checkpoint_until_training_lands(capsys):
+def test_serve_launcher_refuses_a_checkpoint_until_training_lands(
+        capsys, tmp_path):
+    """Training has landed, so ``--ckpt-dir`` is no longer refused: as in
+    the reference, a directory with no checkpoint serves the seeded
+    weights, and one with a checkpoint serves its float32 masters, cast
+    (the train-then-serve round trip is in ``test_torch_train.py``)."""
     from repro_torch.launch import serve
-    with pytest.raises(SystemExit):
-        serve.main(["--device", "cpu", "--ckpt-dir", "somewhere"])
-    assert "--ckpt-dir" in capsys.readouterr().err
+    from repro_torch.models.convert import reference_tree
+    from repro_torch.runtime.checkpoint import Checkpointer
+    small = ["--device", "cpu", "--requests", "4", "--reduced-layers", "2",
+             "--reduced-width", "64", "--max-new", "5"]
+    seeded = serve.main(small)
+    empty = serve.main(small + ["--ckpt-dir", str(tmp_path / "none")])
+    assert "restored" not in capsys.readouterr().out
+    for a, b in zip(seeded.model.parameters(), empty.model.parameters()):
+        assert torch.equal(a, b)
+    trained = build_model(seeded.model.cfg, device="cpu").init(
+        torch.Generator().manual_seed(9))
+    Checkpointer(tmp_path / "ck").save(4, {"params": reference_tree(trained)})
+    srv = serve.main(small + ["--ckpt-dir", str(tmp_path / "ck")])
+    assert "restored step 4" in capsys.readouterr().out
+    for (n, a), b in zip(srv.model.named_parameters(), trained.parameters()):
+        assert torch.equal(a, b.to(a.dtype)), n
+    assert srv.model.layers[0].attn["wq"].dtype == torch.bfloat16
 
 
 def test_server_refuses_a_model_on_another_device():
