@@ -18,18 +18,28 @@ Phases, one line of output each:
             a fused and an unfused m*x + b round apart (disp bitwise); both
             of the last two at n = 2^24 + 1, where the float32 row-id test
             drops row 2^24;
-  lm_serve  the LM serving path: h2o-danube-3-4b at full width and depth
-            (24 layers, 3.84B parameters, bfloat16 weights) behind a
-            Server whose COAX router runs on the device backend; 512
-            requests drawn as launch/serve.py draws them, drained in waves
-            of 8; every admission equal to a numpy-backend twin router,
-            one plan dispatch per admission on a built index, fused_scan
-            launches counted around the drain; the first wave's logits
-            against one forward, a 2-layer full-width prefill against the
-            CPU; prefill and decode ms against their bounds, tokens/s,
-            admission latency, a torch.profiler breakdown; the model is
-            freed (checked) before the next phase;
-  main      the serving path at real size: 20M airline rows, 512 knn range
+  lm_serve  the LM serving path, once for each of h2o-danube-3-4b (24
+            layers, 3.84B parameters), zamba2-2.7b (54 Mamba2 layers and
+            2 shared attention blocks, 2.45B) and minicpm3-4b (62 MLA
+            layers, 4.07B), each at full width and depth with bfloat16
+            weights, behind a Server whose COAX router runs on the device
+            backend; 512 requests drawn as launch/serve.py draws them,
+            drained in waves of 8; every admission equal to a
+            numpy-backend twin router, one plan dispatch per admission on
+            a built index, fused_scan launches counted around the drain;
+            the first wave's logits against one forward (replayed at
+            float32 activations; as served, at bfloat16, for h2o), a
+            reduced-depth full-width prefill against the CPU (zamba2 at 12
+            layers, both shared blocks); prefill and decode ms against
+            their bounds, tokens/s, admission latency, a torch.profiler
+            breakdown; each model is freed (checked) before the next;
+  lm_train  curation through fused_scan, h2o-danube-3-4b trained at full
+            width and depth, 2-layer full-width train steps card vs CPU
+            (h2o and mamba2-130m), and the training launcher at its
+            defaults (mamba2-130m, full size, --curate) to step 20,
+            resumed to 30, served from its checkpoint (the phase's
+            function says more);
+  main      the serving path at real size: 10M airline rows, 512 knn range
             queries through QueryServer in 64-query waves, inserts and
             deletes between waves, a compaction, one more wave, then one
             pipelined drain of all 512 — every wave's answer equal to the
@@ -99,7 +109,9 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM memory rate (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12        # H100 SXM float32 outside the tensor cores
 
-FULL = dict(rows=20_000_000, queries=512, wave=64, knn=64, sample_cap=50_000,
+# 10M rows, cut from the paper's 80M (and from 20M) so that every phase,
+# the LM families' included, ends inside the 1,200 s budget on a slow host
+FULL = dict(rows=10_000_000, queries=512, wave=64, knn=64, sample_cap=50_000,
             inserts=2_000, deletes=500, waves=8, reps=20, chunk=4)
 REHEARSE = dict(rows=200_000, queries=64, wave=16, knn=64, sample_cap=20_000,
                 inserts=200, deletes=50, waves=4, reps=1, chunk=4)
@@ -121,7 +133,7 @@ REP_FAULTS = {"ship.replica-0": {1: "drop", 3: "tear", 5: "dup", 8: "reorder"},
               "replica-1.apply": {4: "crash"},
               "primary.rotate": {0: "crash"}}
 # a replica is healthy while its last heartbeat is younger than this: a
-# round at 20M rows (writes, catch-up, a wave and its host check) takes
+# round at 10M rows (writes, catch-up, a wave and its host check) takes
 # several seconds, longer than the server's 5 s default, and a reordered
 # heartbeat can leave a replica a whole round without a fresh one
 REP_HEARTBEAT_S = 60.0
@@ -555,7 +567,7 @@ def main_phase(torch, dev, cfg):
     resident = plan_bytes(plan)
     peak = torch.cuda.max_memory_allocated() if dev != "cpu" else 0
     say("main", f"airline {cfg['rows']:,} rows x {ds.data.shape[1]} dims "
-        f"(cut from the paper's {PAPER_ROWS:,} for host build time), built "
+        f"(cut from the paper's {PAPER_ROWS:,} for the time limit), built "
         f"in {build_s:.1f} s; {srv.waves_drained} waves of {wave} "
         f"({len(rects)} knn queries), writes between waves (delta "
         f"{delta_rows} rows, {tombstones} tombstones; wave latency p50 "
@@ -1946,33 +1958,142 @@ def fmt_lat(lat_s):
             f"{pct(lat_s, 99):.2f} ms, max {max(lat_s) * 1e3:.2f} ms)")
 
 
-# the lm_serve phase: the serve launcher's default arch at full width and
-# depth, the launcher's traffic at 512 requests (the router builds its
-# index only once 256 are pending), and the bfloat16 bar of the
-# reference's own prefill/forward test
+# the lm_serve phase: the serve launcher's default arch, the hybrid and the
+# MLA arch, each at full width and depth, the launcher's traffic at 512
+# requests (the router builds its index only once 256 are pending), and the
+# bfloat16 bar of the reference's own prefill/forward test
 LM_ARCH, LM_SEED, LM_REQUESTS = "h2o-danube-3-4b", 0, 512
+# the rehearsal's requests: enough for the router to build its index (256
+# pending), fewer waves of the CPU's slow bfloat16 products
+LM_REHEARSE_REQUESTS = 288
+LM_SERVE_ARCHS = (LM_ARCH, "zamba2-2.7b", "minicpm3-4b")
 LM_SERVE = dict(batch_size=8, max_new_tokens=16, cache_len=512, eos_token=0)
 LM_TOL = dict(rtol=0.05, atol=0.08)
+PROFILED_STEPS = 4            # decode steps of the first wave profiled
+# the first wave replayed at float32 activations against the forward:
+# float32 GEMMs of 8 rows (decode) and of 8 x s rows (forward) sum in other
+# orders on the card, and over 24-63 blocks the logits moved apart by up to
+# 6.6e-5 (PERF.md §6); the bar is 400x under the bfloat16 one
+F32_TOL = dict(rtol=1e-4, atol=2e-4)
+# archs whose bfloat16 first wave holds the bfloat16 bar against the
+# forward: over zamba2's 63 blocks and minicpm3's 62 layers bfloat16
+# rounding compounds past it, in the reference too (PERF.md §6), and
+# their wave is held at float32 alone
+BF16_WAVE_GATED = (LM_ARCH,)
 BF16_OPS_PER_S = 989e12       # H100 SXM bfloat16 dense (NVIDIA data sheet)
+CONV_K = 4                    # Mamba2's causal-conv taps (models/ssm.py)
+
+
+def mamba_ops(cfg, b, s):
+    """Operations of one Mamba2 layer over ``b`` x ``s`` tokens: the five
+    input projections and the output one, the causal conv, and the SSD:
+    for a prompt its chunked form at ``cfg.ssd_chunk`` (the C.B^T scores
+    and the gated product inside each chunk, the chunk states and the
+    entering states' read-out), for one token the state update (3 a
+    state element) and read-out (2)."""
+    d, h, p, n = cfg.d_model, cfg.ssm_heads, cfg.ssm_head_p, cfg.ssm_state
+    t = b * s
+    proj = 2 * t * d * (2 * h * p + 2 * n + h) + 2 * t * h * p * d
+    conv = 2 * CONV_K * t * (h * p + 2 * n)
+    if s == 1:
+        return proj + conv + 5 * b * h * p * n
+    l = min(cfg.ssd_chunk, s)
+    nc = s // l
+    ssd = 2 * b * nc * l * l * (n + h * p) + 2 * 2 * t * n * h * p
+    return proj + conv + ssd
+
+
+def attn_ops(cfg, b, s, kv_slots):
+    """Operations of one attention block (GQA or MLA, then the gated MLP)
+    over ``b`` x ``s`` tokens: its products and the causal attention the
+    data needs (``kv_slots`` valid slots for one token).  MLA decodes in
+    the absorbed form over its latent cache."""
+    d, h, ff, t = cfg.d_model, cfg.n_heads, cfg.d_ff, b * s
+    pairs = s * (s + 1) // 2 if s > 1 else kv_slots
+    mlp = 3 * 2 * t * d * ff
+    if not cfg.mla:
+        kv, hd = cfg.n_kv_heads, cfg.hd
+        return (2 * t * d * (h + 2 * kv) * hd + 2 * t * h * hd * d + mlp
+                + 2 * 2 * b * h * hd * pairs)
+    ql, kl, nope, rope, vd = (cfg.q_lora, cfg.kv_lora, cfg.nope_dim,
+                              cfg.rope_dim, cfg.v_dim)
+    proj = 2 * t * (d * ql + ql * h * (nope + rope) + d * kl + d * rope
+                    + h * nope * kl + h * kl * vd + h * vd * d)
+    if s > 1:
+        return proj + mlp + 2 * b * h * (nope + rope + vd) * pairs
+    return proj + mlp + 2 * b * h * (2 * kl + rope) * pairs
+
+
+def decode_cache_bytes(cfg, b, kv_slots):
+    """(bytes one decode step reads of the cache, bytes it writes): the
+    valid KV (or latent) slots read and one slot written a layer; a
+    Mamba2 layer's float32 ``(H, P, N)`` state and bfloat16 conv tails
+    read and written once."""
+    L = cfg.n_layers
+    read = write = 0
+    if cfg.family in ("ssm", "hybrid"):
+        h, p, n = cfg.ssm_heads, cfg.ssm_head_p, cfg.ssm_state
+        n_mamba = (L if cfg.family == "ssm"
+                   else (L // cfg.attn_every) * cfg.attn_every)
+        state = n_mamba * b * (4 * h * p * n + 2 * (CONV_K - 1) * (h * p + 2 * n))
+        read, write = state, state
+    if cfg.family == "ssm":
+        return read, write
+    n_attn = L // cfg.attn_every if cfg.family == "hybrid" else L
+    slot = (2 * (cfg.kv_lora + cfg.rope_dim) if cfg.mla
+            else 2 * 2 * cfg.n_kv_heads * cfg.hd)
+    return read + n_attn * b * kv_slots * slot, write + n_attn * b * slot
 
 
 def lm_cost(cfg, b, s, kv_slots, weight_bytes, cache_out_bytes):
     """(operations, bytes) of one prefill (``s`` > 1 prompt tokens) or one
-    decode step (``s`` = 1, attending ``kv_slots`` valid slots): the dense
-    products, the causal attention the data needs, the last-token unembed;
-    every weight read once, the cache read (decode) and written once."""
-    d, h, kv, hd, ff, L = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
-                           cfg.d_ff, cfg.n_layers)
-    t = b * s
-    per_layer = 2 * t * d * (h + 2 * kv) * hd + 2 * t * h * hd * d \
-        + 3 * 2 * t * d * ff
-    pairs = s * (s + 1) // 2 if s > 1 else kv_slots
-    attn = 2 * 2 * b * h * hd * pairs
-    ops = L * (per_layer + attn) + 2 * b * cfg.padded_vocab * d
-    kv_read = 0 if s > 1 else L * 2 * b * kv_slots * kv * hd * 2
-    nbytes = (weight_bytes + kv_read + cache_out_bytes + 4 * t
+    decode step (``s`` = 1, attending ``kv_slots`` valid slots) of
+    ``cfg``'s family: every layer's products (``attn_ops``, ``mamba_ops``;
+    a hybrid runs its shared blocks once a segment), the last-token
+    unembed; every weight read once, the cache read (decode,
+    ``decode_cache_bytes``) and ``cache_out_bytes`` written once."""
+    L, d = cfg.n_layers, cfg.d_model
+    ops = 2 * b * cfg.padded_vocab * d
+    if cfg.family == "ssm":
+        ops += L * mamba_ops(cfg, b, s)
+    elif cfg.family == "hybrid":
+        n_seg = L // cfg.attn_every
+        ops += n_seg * (cfg.attn_every * mamba_ops(cfg, b, s)
+                        + attn_ops(cfg, b, s, kv_slots))
+    else:
+        ops += L * attn_ops(cfg, b, s, kv_slots)
+    cache_read = decode_cache_bytes(cfg, b, kv_slots)[0] if s == 1 else 0
+    nbytes = (weight_bytes + cache_read + cache_out_bytes + 4 * b * s
               + 4 * b * cfg.padded_vocab)
     return ops, nbytes
+
+
+def attn_slots(cache):
+    """Slots of a decode cache's attention entry (0 for an ssm cache)."""
+    for name in ("k", "ckv", "k_glob"):
+        if name in cache:
+            return cache[name].shape[2]
+    return 0
+
+
+def describe(cfg):
+    """The shape of ``cfg``'s layers, for the phase's first line."""
+    if cfg.family in ("ssm", "hybrid"):
+        text = (f"{cfg.n_layers} Mamba2 layers (d_model {cfg.d_model}, "
+                f"{cfg.ssm_heads} heads x {cfg.ssm_head_p}, state "
+                f"{cfg.ssm_state}, SSD chunk {cfg.ssd_chunk})")
+        if cfg.family == "hybrid":
+            text += (f", {cfg.n_shared_attn} shared GQA blocks "
+                     f"({cfg.n_heads}/{cfg.n_kv_heads} x {cfg.hd}, d_ff "
+                     f"{cfg.d_ff}) after every {cfg.attn_every}")
+        return text
+    if cfg.mla:
+        return (f"{cfg.n_layers} layers, d_model {cfg.d_model}, MLA "
+                f"{cfg.n_heads} heads (q_lora {cfg.q_lora}, kv_lora "
+                f"{cfg.kv_lora}, nope/rope/v {cfg.nope_dim}/{cfg.rope_dim}/"
+                f"{cfg.v_dim}), d_ff {cfg.d_ff}")
+    return (f"{cfg.n_layers} layers, d_model {cfg.d_model}, heads "
+            f"{cfg.n_heads}/{cfg.n_kv_heads} x {cfg.hd}, window {cfg.window}")
 
 
 def train_bound_ms(n_params, tokens):
@@ -2021,19 +2142,20 @@ def lm_profile(torch, fn, reps):
             sum(k[1] for k in kernels) / reps, top)
 
 
-def lm_serve_phase(torch, dev, card_line):
-    """The LM serving path on the card: ``build_model`` (h2o-danube-3-4b at
-    full width and depth; 2 layers at width 64 in the rehearsal), float32
-    masters from a seeded generator cast once to bfloat16, a ``Server``
-    whose router runs on the device backend, 512 requests drawn as
-    ``launch/serve.py`` draws them, drained.  Checks: every request
-    answered once with its budget of tokens; every admission equal to a
-    numpy-backend twin router fed the same submissions; fused_scan
-    launches around the drain > 0 and one plan dispatch per admission
-    that met a built index; the first wave's prefill + decode logits
-    against a full forward over prompt + fed tokens, and a 2-layer
-    full-width prefill on the card against the CPU, at rtol 0.05 /
-    atol 0.08.  ``release_lm`` frees the model after it returns."""
+def lm_serve_phase(torch, dev, card_line, arch=LM_ARCH):
+    """The LM serving path on the card for ``arch``: ``build_model`` at
+    full width and depth (2 layers at width 64 in the rehearsal, a hybrid
+    one segment of 6, SSD and latent dims cut), float32 masters from a seeded
+    generator cast once to bfloat16, a ``Server`` whose router runs on the
+    device backend, 512 requests (288 in the rehearsal) drawn as
+    ``launch/serve.py`` draws them, drained.  Checks: every request answered once with its budget of
+    tokens; every admission equal to a numpy-backend twin router fed the
+    same submissions; fused_scan launches around the drain > 0 and one
+    plan dispatch per admission that met a built index; the first wave's
+    prefill + decode logits against a full forward over prompt + fed
+    tokens, and a reduced-depth full-width prefill (2 layers; a hybrid
+    12) on the card against the CPU, at rtol 0.05 / atol 0.08.
+    ``release_lm`` frees the model after it returns."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.kernels import fused_scan
@@ -2045,9 +2167,21 @@ def lm_serve_phase(torch, dev, card_line):
 
     t_phase = time.perf_counter()
     cuda = dev != "cpu"
-    cfg = get_config(LM_ARCH)
+    cfg = get_config(arch)
+    # a reduced depth that keeps each kind of layer: a hybrid needs two
+    # segments of attn_every Mamba2 layers to run both shared blocks
+    depth = (cfg.attn_every * cfg.n_shared_attn if cfg.family == "hybrid"
+             else 2)
     if not cuda:
-        cfg = reduced(cfg, 2, 64)
+        # the rehearsal checks the control flow at a tiny size: one hybrid
+        # segment, narrow SSD and latent dims
+        depth = cfg.attn_every if cfg.family == "hybrid" else 2
+        cfg = reduced(cfg, depth, 64)
+        if cfg.mla:
+            cfg = dataclasses.replace(cfg, q_lora=32, kv_lora=16, nope_dim=8,
+                                      rope_dim=4, v_dim=8)
+        if cfg.family == "hybrid":
+            cfg = dataclasses.replace(cfg, ssm_state=8, ssm_head_p=8)
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     sync(torch, dev)
@@ -2059,11 +2193,9 @@ def lm_serve_phase(torch, dev, card_line):
     n_params = model.param_count()
     w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
     mem = torch.cuda.memory_allocated() if cuda else 0
-    say("lm_serve", f"{cfg.name}: {cfg.n_layers} layers, d_model "
-        f"{cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} x {cfg.hd}, "
-        f"window {cfg.window}; {n_params:,} parameters, weights "
-        f"{w_bytes / 1e9:.3f} GB (float32 masters cast once: matrices "
-        f"bfloat16, norm scales float32); init "
+    say("lm_serve", f"{cfg.name}: {describe(cfg)}; {n_params:,} parameters, "
+        f"weights {w_bytes / 1e9:.3f} GB (float32 masters cast once: "
+        f"matrices bfloat16, norm scales float32); init "
         f"{init_s:.2f} s; device memory {mem / 2**30:.2f} GiB ({card_line})")
 
     srv = Server(model, ServeConfig(**LM_SERVE), device=dev)
@@ -2071,7 +2203,8 @@ def lm_serve_phase(torch, dev, card_line):
     assert router.backend == "device" and router.device == dev
     rng = np.random.default_rng(LM_SEED)
     budgets = {}
-    for _ in range(LM_REQUESTS):         # as launch/serve.py draws them
+    n_requests = LM_REQUESTS if cuda else LM_REHEARSE_REQUESTS
+    for _ in range(n_requests):          # as launch/serve.py draws them
         plen = int(rng.choice([16, 32, 64, 128]))
         rid = srv.submit(
             rng.integers(1, cfg.padded_vocab - 1, plen).astype(np.int32),
@@ -2131,10 +2264,10 @@ def lm_serve_phase(torch, dev, card_line):
         sync(torch, dev)
         ms = (time.perf_counter() - t) * 1e3
         b = tok.shape[0]
-        slots = min(step + 1, next(iter(cache.values())).shape[2])
+        slots = min(step + 1, attn_slots(cache))
         decodes.append((ms, lm_bound_ms(*lm_cost(
             cfg, b, 1, slots, w_bytes,
-            cfg.n_layers * 2 * b * cfg.n_kv_heads * cfg.hd * 2))))
+            decode_cache_bytes(cfg, b, slots)[1]))))
         if srv.waves == 0:
             first["fed"].append(tok)
             first["logits"].append(logits.float().cpu())
@@ -2144,7 +2277,7 @@ def lm_serve_phase(torch, dev, card_line):
     fused_scan.launches = 0             # ---- the phase's serving run ----
     sync(torch, dev)
     t0 = time.perf_counter()
-    results = srv.run_until_drained(max_waves=10 * LM_REQUESTS)
+    results = srv.run_until_drained(max_waves=10 * n_requests)
     sync(torch, dev)
     drain_s = time.perf_counter() - t0
     launches = fused_scan.launches      # ---- read right after ----
@@ -2163,16 +2296,25 @@ def lm_serve_phase(torch, dev, card_line):
     if cuda and launches <= 0:
         raise AssertionError("the serving run launched no fused_scan kernel")
 
-    # the first wave against one forward over prompt + fed tokens
-    seq = torch.cat([first["prompts"]] + first["fed"], dim=1)
-    with torch.no_grad():
-        full, _ = model.forward({"tokens": seq})
+    # the first wave against one forward over prompt + fed tokens, as
+    # served (bfloat16) and replayed at float32 activations
     s0 = first["prompts"].shape[1]
-    want = full[:, s0 - 1:s0 - 1 + len(first["logits"])].float().cpu()
     got = torch.cat(first["logits"], dim=1)
-    np.testing.assert_allclose(got.numpy(), want.numpy(), **LM_TOL)
-    wave_err = float((got - want).abs().max())
-    del full, want, got, seq
+    want = first_wave_forward(torch, model, first)
+    step_errs = (got - want).abs().amax(dim=(0, 2)).tolist()
+    f32_got, f32_want = first_wave_f32(torch, model, first)
+    f32_errs = (f32_got - f32_want).abs().amax(dim=(0, 2)).tolist()
+    say("lm_serve", f"{cfg.name}: first wave, max |prefill/decode - "
+        f"forward| by step: bfloat16 "
+        f"{', '.join(f'{e:.4f}' for e in step_errs)}; float32 replay "
+        f"{', '.join(f'{e:.2e}' for e in f32_errs)}")
+    if arch in BF16_WAVE_GATED:
+        np.testing.assert_allclose(got.numpy(), want.numpy(), **LM_TOL)
+    np.testing.assert_allclose(f32_got.numpy(), f32_want.numpy(), **F32_TOL)
+    if not torch.isfinite(got).all():
+        raise AssertionError("the first wave's logits are not finite")
+    wave_err, f32_err = max(step_errs), max(f32_errs)
+    del want, got, f32_got, f32_want
 
     # where a step's time goes: the first wave's prefill and its decode
     # steps again, under torch.profiler
@@ -2180,14 +2322,16 @@ def lm_serve_phase(torch, dev, card_line):
     if cuda:
         batch = {"tokens": first["prompts"]}
         p_pre = lm_profile(torch, lambda: model.prefill(
-            batch, LM_SERVE["cache_len"]), 3)
+            batch, LM_SERVE["cache_len"]), 1)
         _, cache = model.prefill(batch, LM_SERVE["cache_len"])
         steps = iter(range(len(first["fed"])))
 
         def one_step():
             i = next(steps)
             model.decode_step(cache, first["fed"][i], s0 + i)
-        p_dec = lm_profile(torch, one_step, len(first["fed"]))
+        # a few steps: a trace of thousands of kernels a step is slow to read
+        p_dec = lm_profile(torch, one_step, min(PROFILED_STEPS,
+                                                len(first["fed"])))
         del cache
         prof = "; ".join(
             f"{name}: {p[0]:.3f} ms wall, card busy {p[1]:.3f} ms "
@@ -2209,7 +2353,7 @@ def lm_serve_phase(torch, dev, card_line):
     dec_ms = float(np.median([m for m, _ in decodes]))
     dec_bound = float(np.median([bnd[0] for _, bnd in decodes]))
     dec_by = decodes[0][1][1]
-    say("lm_serve", f"{LM_REQUESTS} requests in {srv.waves} waves of "
+    say("lm_serve", f"{cfg.name}: {n_requests} requests in {srv.waves} waves of "
         f"{LM_SERVE['batch_size']}: {toks:,} tokens in {drain_s:.2f} s "
         f"({toks / drain_s:.1f} tokens/s); prefill p50 by padded length "
         f"(batch {LM_SERVE['batch_size']}): {pre}; decode p50 {dec_ms:.3f} "
@@ -2220,14 +2364,17 @@ def lm_serve_phase(torch, dev, card_line):
         f"on a built index (one plan dispatch each); fused_scan launches "
         f"{launches}; peak device memory {peak / 2**30:.2f} GiB "
         f"({card_line})")
-    say("lm_serve", f"profile of the first wave (torch.profiler): {prof}")
+    say("lm_serve", f"{cfg.name}: profile of the first wave "
+        f"(torch.profiler): {prof}")
 
-    # 2 layers at full width: prefill of one 32-token prompt, card vs CPU
-    cfg2 = dataclasses.replace(cfg, n_layers=2)
-    host = cast_params(build_model(cfg2, device="cpu").init(
-        make_generator(LM_SEED + 1, "cpu")))
-    card = cast_params(build_model(cfg2, device=dev))
-    card.load_state_dict(host.state_dict())
+    # reduced depth at full width: prefill of one 32-token prompt, card vs
+    # CPU
+    # (seeded on the card, where init is fast, and copied to the host)
+    cfg2 = dataclasses.replace(cfg, n_layers=depth)
+    card = cast_params(build_model(cfg2, device=dev).init(
+        make_generator(LM_SEED + 1, dev)))
+    host = cast_params(build_model(cfg2, device="cpu"))
+    host.load_state_dict(card.state_dict())
     prompt = torch.from_numpy(np.random.default_rng(LM_SEED + 2).integers(
         1, cfg.padded_vocab - 1, (1, 32)).astype(np.int32))
     l_host, _ = host.prefill({"tokens": prompt}, LM_SERVE["cache_len"])
@@ -2236,15 +2383,52 @@ def lm_serve_phase(torch, dev, card_line):
     np.testing.assert_allclose(l_card.float().cpu().numpy(),
                                l_host.float().numpy(), **LM_TOL)
     two_err = float((l_card.float().cpu() - l_host.float()).abs().max())
-    say("lm_serve", f"checks passed: {len(results)} requests answered once "
-        f"with their budgets; {admits[0]} admissions == numpy twin router; "
-        f"first wave ({first['prompts'].shape[0]} x {s0} prompt, "
-        f"{len(first['logits'])} steps) prefill + decode == forward "
-        f"(max_abs_err {wave_err:.4f}); 2-layer full-width prefill card == "
-        f"CPU (max_abs_err {two_err:.4f}); tolerance rtol 0.05 / atol 0.08; "
-        f"phase {time.perf_counter() - t_phase:.1f} s")
+    say("lm_serve", f"{cfg.name}: checks passed: {len(results)} requests "
+        f"answered once with their budgets; {admits[0]} admissions == numpy "
+        f"twin router; first wave ({first['prompts'].shape[0]} x {s0} "
+        f"prompt, {len(first['logits'])} steps) prefill + decode == forward "
+        f"at float32 (max_abs_err {f32_err:.2e}, rtol 1e-4 / atol 2e-4), "
+        f"at bfloat16 max_abs_err {wave_err:.4f} ("
+        f"{'held' if arch in BF16_WAVE_GATED else 'not held'} at the "
+        f"bfloat16 bar); {depth}-layer full-width prefill "
+        f"card == CPU (max_abs_err {two_err:.4f}); tolerance rtol 0.05 / "
+        f"atol 0.08; phase {time.perf_counter() - t_phase:.1f} s")
     return dict(launches=launches, admits=admits[0],
                 indexed=len(waves_per_admit))
+
+
+def first_wave_forward(torch, model, first):
+    """The logits one forward over the first wave's prompt + fed tokens
+    gives at the positions the wave's prefill and decode steps predicted
+    (float32, on the CPU)."""
+    seq = torch.cat([first["prompts"]] + first["fed"], dim=1)
+    s0 = first["prompts"].shape[1]
+    with torch.no_grad():
+        full, _ = model.forward({"tokens": seq})
+    return full[:, s0 - 1:s0 - 1 + len(first["logits"])].float().cpu()
+
+
+def first_wave_f32(torch, model, first):
+    """The first wave replayed at float32 activations on the served
+    (bfloat16) weights: (its prefill + decode logits, the forward's at
+    the same positions), both on the CPU.  It holds the caches, the
+    recurrence and the SSD duality at full width and depth without
+    bfloat16's rounding, which compounds over a deep stack."""
+    import repro_torch.models.common as common
+    keep = common.DTYPE
+    common.DTYPE = torch.float32
+    try:
+        s0 = first["prompts"].shape[1]
+        logits, cache = model.prefill({"tokens": first["prompts"]},
+                                      LM_SERVE["cache_len"])
+        outs = [logits.float().cpu()]
+        for i, tok in enumerate(first["fed"]):
+            logits, cache = model.decode_step(cache, tok, s0 + i)
+            outs.append(logits.float().cpu())
+        del cache
+        return torch.cat(outs, dim=1), first_wave_forward(torch, model, first)
+    finally:
+        common.DTYPE = keep
 
 
 def release_lm(torch, phase="lm_serve", limit=1 << 30):
@@ -2266,6 +2450,8 @@ def release_lm(torch, phase="lm_serve", limit=1 << 30):
 # its curation query, batch 8 x seq 256, lr 1e-3), 8 steps at full width
 # and depth; the card-vs-CPU twin's batch; the launchers' round trip
 LM_TRAIN = dict(docs=50_000, batch=8, seq=256, steps=8, lr=1e-3)
+# the training launcher's default arch (src/repro/launch/train.py:45)
+LAUNCH_ARCH = "mamba2-130m"
 # the twin's AdamW eps: the first update g / (|g| + eps) multiplies a
 # gradient difference by up to 1 / (4 eps); at the default 1e-8 the two
 # devices' float32 GEMM orders (gradients equal to ~1e-6) moved 80 of the
@@ -2291,16 +2477,18 @@ def lm_train_phase(torch, dev, card_line):
        bound (``train_bound_ms``), the model-FLOP share, AdamW ms (CUDA
        events), peak memory against the state reckoning, and one more
        step under torch.profiler (the card's busy share).
-    3. One train step of a 2-layer full-width model on the card and on
-       the CPU from the same weights and batch (AdamW eps ``TWIN_EPS``):
-       float32 activations within rtol 1e-4 (loss, grad norm) / atol 1e-5
+    3. One train step of a 2-layer full-width model (h2o-danube-3-4b and
+       the launcher's default, mamba2-130m) on the card and on the CPU
+       from the same weights and batch (AdamW eps ``TWIN_EPS``): float32
+       activations within rtol 1e-4 (loss, grad norm) / atol 1e-5
        (parameters), bfloat16 within rtol 0.05 / atol 0.08.
-    4. The launchers at their reduced size: ``launch.train.main`` with
-       ``--curate`` to step 20 (checkpoints every 10 under
-       ``build/train_smoke``), again to 30 (resumes at 20), then
-       ``launch.serve.main --ckpt-dir`` restores step 30 (checked equal
-       to the checkpoint's arrays) and serves; the directory is removed
-       even on failure.
+    4. The launchers at their defaults (``launchers``): mamba2-130m at
+       full size trained with ``--curate`` to step 20 (checkpoints every
+       10 under ``build/train_smoke``), again to 30 (resumes at 20), then
+       served with ``--reduced-layers 0 --ckpt-dir`` from step 30 (checked
+       equal to the checkpoint's arrays); step ms, tokens/s, checkpoint
+       save and restore seconds; the directory is removed even on
+       failure.
 
     The rehearsal runs the same at 2 layers and width 64 on the CPU."""
     import dataclasses
@@ -2349,53 +2537,67 @@ def lm_train_phase(torch, dev, card_line):
         release_lm(torch, "lm_train")
 
     # ---- 3. card against the CPU, 2 layers at full width ----
-    cfg2 = dataclasses.replace(cfg, n_layers=2)
     loader = ShardedLoader(corpus, batch_size=TWIN_BATCH, seq_len=s,
                            doc_ids=docs, seed=1)
     batch = next(iter(loader))
     loader.close()
-    errs = []
-    for dtype in ("float32", "bfloat16"):
-        got, p_got = train_twin(torch, cfg2, batch, dev, dtype)
-        want, p_want = train_twin(torch, cfg2, batch, "cpu", dtype)
-        tol, ptol = TWIN_TOL[dtype]
-        for k in want:
-            np.testing.assert_allclose(got[k], want[k], err_msg=k, **tol)
-        err = 0.0
-        for n in p_want:
-            np.testing.assert_allclose(p_got[n].numpy(), p_want[n].numpy(),
-                                       err_msg=n, **ptol)
-            err = max(err, float((p_got[n] - p_want[n]).abs().max()))
-        errs.append(f"{dtype}: loss {got['loss']:.6f} vs {want['loss']:.6f}, "
-                    f"grad norm {got['grad_norm']:.6f} vs "
-                    f"{want['grad_norm']:.6f}, parameters max_abs_err "
-                    f"{err:.3g}")
-        del p_got, p_want
-    say("lm_train", f"2-layer train step at d_model {cfg.d_model} "
-        f"({TWIN_BATCH} x {s}, AdamW eps {TWIN_EPS}), {dev} vs CPU: "
-        f"{'; '.join(errs)}")
+    for arch in (LM_ARCH, LAUNCH_ARCH):
+        cfg2 = get_config(arch)
+        cfg2 = (dataclasses.replace(cfg2, n_layers=2) if cuda
+                else reduced(cfg2, 2, 64))
+        errs, weights = [], twin_weights(torch, cfg2, dev)
+        for dtype in ("float32", "bfloat16"):
+            got, p_got = train_twin(torch, cfg2, batch, dev, dtype, weights)
+            want, p_want = train_twin(torch, cfg2, batch, "cpu", dtype,
+                                      weights)
+            tol, ptol = TWIN_TOL[dtype]
+            for k in want:
+                np.testing.assert_allclose(got[k], want[k],
+                                           err_msg=f"{arch} {k}", **tol)
+            err = 0.0
+            for n in p_want:
+                np.testing.assert_allclose(p_got[n].numpy(),
+                                           p_want[n].numpy(),
+                                           err_msg=f"{arch} {n}", **ptol)
+                err = max(err, float((p_got[n] - p_want[n]).abs().max()))
+            errs.append(f"{dtype}: loss {got['loss']:.6f} vs "
+                        f"{want['loss']:.6f}, grad norm "
+                        f"{got['grad_norm']:.6f} vs {want['grad_norm']:.6f}, "
+                        f"parameters max_abs_err {err:.3g}")
+            del p_got, p_want
+        del weights
+        say("lm_train", f"{arch}: 2-layer train step at d_model "
+            f"{cfg2.d_model} ({TWIN_BATCH} x {s}, AdamW eps {TWIN_EPS}), "
+            f"{dev} vs CPU: {'; '.join(errs)}")
 
     # ---- 4. the launchers: train, resume, serve ----
-    launchers(torch, dev, cuda)
+    launchers(torch, dev, cuda, card_line)
     say("lm_train", f"phase {time.perf_counter() - t_phase:.1f} s")
 
 
-def train_twin(torch, cfg, batch, dev, dtype):
-    """One ``make_train_step`` step of ``cfg`` on ``dev`` at activation
-    dtype ``dtype``, from seeded CPU weights: (loss and grad norm as
-    floats, the updated parameters on the CPU)."""
-    import repro_torch.models.common as common
+def twin_weights(torch, cfg, dev):
+    """Seeded float32 weights of ``cfg`` as a CPU state dict, drawn on
+    ``dev`` (init on the card is fast; on the host a full-width embedding
+    table takes tens of seconds), for every ``train_twin`` of ``cfg``."""
     from repro_torch.models import build_model
     from repro_torch.models.common import make_generator
+    model = build_model(cfg, device=dev).init(make_generator(LM_SEED, dev))
+    return {k: v.cpu() for k, v in model.state_dict().items()}
+
+
+def train_twin(torch, cfg, batch, dev, dtype, weights):
+    """One ``make_train_step`` step of ``cfg`` on ``dev`` at activation
+    dtype ``dtype``, from ``weights`` (``twin_weights``): (loss and grad
+    norm as floats, the updated parameters on the CPU)."""
+    import repro_torch.models.common as common
+    from repro_torch.models import build_model
     from repro_torch.optim import AdamWConfig, adamw_init
     from repro_torch.runtime.steps import make_train_step
     keep = common.DTYPE
     common.DTYPE = getattr(torch, dtype)
     try:
-        host = build_model(cfg, device="cpu").init(make_generator(LM_SEED))
         model = build_model(cfg, device=dev)
-        model.load_state_dict(host.state_dict())
-        del host
+        model.load_state_dict(weights)
         state = adamw_init(model)
         m = make_train_step(model, AdamWConfig(lr=LM_TRAIN["lr"],
                                                eps=TWIN_EPS))(state, batch)
@@ -2500,20 +2702,42 @@ def train_full(torch, dev, cfg, corpus, docs, card_line):
             f"profiled: {prof} ({card_line})")
 
 
-def launchers(torch, dev, cuda):
-    """The training launcher to step 20, resumed to 30, then the serving
-    launcher restoring step 30 from the same directory."""
+def launchers(torch, dev, cuda, card_line):
+    """The training launcher at its defaults (mamba2-130m, full size, 8 x
+    256, lr 1e-3, ``--curate``) to step 20, resumed to 30, then the
+    serving launcher restoring step 30 from the same directory at full
+    size (2 layers at width 64 in the rehearsal).  Checkpoint saves (the
+    device-to-host copy, then the npz write on the saver's thread) and
+    restores are timed by wrapping ``Checkpointer``'s methods."""
     from repro_torch.launch import serve as serve_launch
     from repro_torch.launch import train as train_launch
-    from repro_torch.runtime.checkpoint import latest_step
+    from repro_torch.runtime.checkpoint import Checkpointer, latest_step
     directory = ROOT / "build" / "train_smoke"
     shutil.rmtree(directory, ignore_errors=True)
-    width = "256" if cuda else "64"
-    common = ["--arch", LM_ARCH, "--reduced-layers", "2", "--reduced-width",
-              width, "--device", dev]
+    size = (["--reduced-layers", "0"] if cuda
+            else ["--reduced-layers", "2", "--reduced-width", "64"])
+    common = ["--arch", LAUNCH_ARCH, "--device", dev]
     args = common + ["--curate", "--ckpt-every", "10", "--ckpt-dir",
-                     str(directory)]
+                     str(directory)] + ([] if cuda else size)
+    timings = {"_host_flat": [], "_write": [], "restore": []}
+    methods = {name: Checkpointer.__dict__[name] for name in timings}
+
+    def timed(name):
+        fn = getattr(Checkpointer, name)
+
+        def wrapper(*a, **k):
+            sync(torch, dev)
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            sync(torch, dev)
+            timings[name].append(time.perf_counter() - t)
+            return out
+        if isinstance(methods[name], staticmethod):
+            return staticmethod(wrapper)
+        return wrapper
     try:
+        for name in timings:
+            setattr(Checkpointer, name, timed(name))
         t0 = time.perf_counter()
         first = train_launch.main(args + ["--steps", "20"])
         second = train_launch.main(args + ["--steps", "30"])
@@ -2523,13 +2747,22 @@ def launchers(torch, dev, cuda):
                 or latest_step(directory) != 30):
             raise AssertionError("the training launcher did not resume at "
                                  "step 20 and stop at 30")
-        srv = serve_launch.main(common + ["--ckpt-dir", str(directory),
-                                          "--requests", "16"])
+        hist = first["history"] + second["history"]
+        losses = [h["loss"] for h in hist]
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"launcher losses not finite: {losses}")
+        n_params = sum(p.numel() for p in first["params"].values())
+        del first["params"], first["opt_state"]
+        del second["params"], second["opt_state"]
+        ck_bytes = (directory / "step_00000030" / "arrays.npz").stat().st_size
+        srv = serve_launch.main(
+            ["--arch", LAUNCH_ARCH, "--device", dev, "--ckpt-dir",
+             str(directory), "--requests", "16"] + size)
         with np.load(directory / "step_00000030" / "arrays.npz") as z:
             for name, p in srv.model.named_parameters():
                 parts = name.split(".")
-                if parts[0] == "layers":
-                    key = "//".join(["params", "layers"] + parts[2:])
+                if parts[0] in ("layers", "shared"):
+                    key = "//".join(["params", parts[0]] + parts[2:])
                     want = z[key][int(parts[1])]
                 else:
                     key = "//".join(["params"] + parts)
@@ -2541,13 +2774,30 @@ def launchers(torch, dev, cuda):
         served = srv.waves
         del srv
     finally:
+        for name, fn in methods.items():
+            setattr(Checkpointer, name, fn)
         shutil.rmtree(directory, ignore_errors=True)
-    say("lm_train", f"launchers: train to step 20 (checkpoints every 10), "
-        f"resumed at 20 to 30, in {train_s:.1f} s (loss "
-        f"{first['history'][0]['loss']:.4f} -> "
-        f"{second['history'][-1]['loss']:.4f}); serve restored step 30 "
-        f"(every parameter == the checkpoint's, cast) and served "
-        f"{served} waves; build/train_smoke removed")
+    # steps after each run's first (the first builds and warms up)
+    step_ms = [h["dt"] * 1e3 for run in (first, second)
+               for h in run["history"][1:]]
+    p50 = float(np.median(step_ms))
+    tokens = LM_TRAIN["batch"] * LM_TRAIN["seq"]      # the launcher's
+
+    def secs(xs):
+        return ", ".join(f"{x:.2f}" for x in xs) or "none"
+    say("lm_train", f"launchers: {LAUNCH_ARCH} ({n_params:,} parameters"
+        f"{'' if cuda else ', reduced'}) with --curate, trained to step 20 "
+        f"(checkpoints every 10), resumed at 20 to 30, in {train_s:.1f} s "
+        f"(loss {losses[0]:.4f} -> {losses[-1]:.4f}); step p50 {p50:.1f} ms, "
+        f"max {max(step_ms):.1f} ms (first steps {hist[0]['dt'] * 1e3:.1f} "
+        f"and {second['history'][0]['dt'] * 1e3:.1f} ms), "
+        f"{tokens / p50 * 1e3:.0f} tokens/s; checkpoint npz of "
+        f"{ck_bytes / 1e9:.3f} GB (params, mu, nu): device-to-host copy "
+        f"{secs(timings['_host_flat'])} s, npz write "
+        f"{secs(timings['_write'])} s, restore {secs(timings['restore'])} s "
+        f"(resume, then serve); serve --ckpt-dir restored step 30 (every "
+        f"parameter == the checkpoint's, cast) and served {served} waves; "
+        f"build/train_smoke removed ({card_line})")
 
 
 def main(argv=None) -> int:
@@ -2566,7 +2816,8 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(SRC))
     if args.rehearse:
-        lm_serve_phase(torch, "cpu", "no card")
+        for arch in LM_SERVE_ARCHS:
+            lm_serve_phase(torch, "cpu", "no card", arch)
         lm_train_phase(torch, "cpu", "no card")
         run = main_phase(torch, "cpu", REHEARSE)
         segs = segments_phase(torch, run, REHEARSE, "cpu")
@@ -2585,26 +2836,43 @@ def main(argv=None) -> int:
         return 2
     cfg = FULL
     t_start = time.perf_counter()
+    marks = [("start", t_start)]
+
+    def mark(phase):
+        marks.append((phase, time.perf_counter()))
     card_line, kind, count = card_phase(torch)
     build_phase()
     small_errs = kernel_phase(torch, "cuda")
-    lm_serve_phase(torch, "cuda", card_line)
-    release_lm(torch)
+    mark("card, build, kernel")
+    for arch in LM_SERVE_ARCHS:
+        lm_serve_phase(torch, "cuda", card_line, arch)
+        release_lm(torch)
+        mark(f"lm_serve {arch}")
     lm_train_phase(torch, "cuda", card_line)
     release_lm(torch, "lm_train")
+    mark("lm_train")
     run = main_phase(torch, "cuda", cfg)
+    mark("main")
     segs = segments_phase(torch, run, cfg, "cuda")
     ops = ops_phase(torch, run, segs, cfg, "cuda")
     entry = times_phase(torch, run, segs, cfg, card_line)
+    mark("segments, ops, times")
     background_phase(torch, run, cfg, "cuda", card_line)
+    mark("background")
     cache_phase(torch, run, cfg, "cuda", card_line)
+    mark("cache")
     sharded_phase(torch, run, cfg, "cuda", card_line)
+    mark("sharded")
     durable_phase(torch, run, cfg, "cuda", card_line)
+    mark("durable")
     seg_err = max(s["err"] for s in segs.values())
     del segs                     # they hold the main plan's images
     replicated_phase(torch, run, cfg, "cuda", card_line)
+    mark("replicated")
+    split = ", ".join(f"{name} {t1 - t0:.1f}"
+                      for (_, t0), (name, t1) in zip(marks, marks[1:]))
     say("total", f"every phase passed in {time.perf_counter() - t_start:.1f}"
-        " s")
+        f" s ({split} s)")
     kernels = [{
         "name": "fused_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fused_scan.cu",

@@ -9,7 +9,11 @@ in the reference's format: the ``params//*`` leaves alone, no optimizer
 state), casts them once to the activation dtype, spins up the Server
 with a CoaxRouter on the same device and drains a synthetic request
 stream, reporting wave composition and token throughput.
-``--reduced-layers 0`` serves the full config.  Returns the Server.
+``--reduced-layers 0`` serves the full config; ``--arch`` takes any
+config ``build_model`` builds (``zamba2-2.7b``, ``minicpm3-4b``,
+``mamba2-130m``, the dense GQA archs).  A hybrid reduced below
+``attn_every`` layers has no shared-attention segment, so keep
+``--reduced-layers`` at 6 or more for zamba2.  Returns the Server.
 """
 from __future__ import annotations
 

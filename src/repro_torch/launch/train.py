@@ -1,6 +1,6 @@
 """Training launcher: the fault-tolerant train loop on one card.
 
-    PYTHONPATH=src python -m repro_torch.launch.train --arch h2o-danube-3-4b \
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m \
         --steps 200 --batch 8 --seq 256 [--curate] [--device cuda]
 
 The port of ``repro.launch.train``, with its flags and defaults and a
@@ -10,10 +10,10 @@ backend (one ``fused_scan`` wave on the card).  Checkpoints land in
 ``--ckpt-dir`` in the reference's format, and a rerun resumes from the
 newest.  ``--reduced-layers`` shrinks the config (``reduced``, shared
 with the serving launcher); without it the config runs at full size.
-A mesh (``--mesh-data`` or ``--mesh-model`` > 1) waits for the port of
-``distributed/*`` (ROADMAP queue 1, item 3(c)) and is refused; the
-default arch, mamba2-130m, is the ssm family, which ``build_model``
-refuses until item 3(b).
+The default arch is mamba2-130m (the ssm family); ``--arch`` takes any
+config ``build_model`` builds (dense GQA or MLA, ssm, hybrid).  A mesh
+(``--mesh-data`` or ``--mesh-model`` > 1) waits for the port of
+``distributed/*`` (ROADMAP queue 1, item 3(c)) and is refused.
 """
 from __future__ import annotations
 

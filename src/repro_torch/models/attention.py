@@ -1,8 +1,10 @@
-"""GQA attention (RoPE, sliding window, softcap): chunked prefill attention
-and single-token decode over a ring or flat KV cache.
+"""Attention layers: GQA (RoPE, sliding window, softcap) with chunked
+prefill attention and single-token decode over a ring or flat KV cache,
+and MLA (MiniCPM3/DeepSeek-V2-style multi-head latent attention), whose
+decode runs in the latent space over ``ckv``/``kpe`` caches.
 
-The port of ``repro.models.attention`` (MLA and cross-attention wait for
-later slices, ROADMAP queue 1).  Scores and outputs are float32 from
+The port of ``repro.models.attention`` (cross-attention waits for the
+enc-dec slice, ROADMAP queue 1).  Scores and outputs are float32 from
 activation-dtype operands, as the reference's
 ``preferred_element_type=jnp.float32``: the operands are upcast (exact,
 bfloat16 embeds in float32) before each product, and the probabilities
@@ -19,7 +21,8 @@ import torch
 from .common import _w, dense_init, rope_tables, rotate, softcap
 
 __all__ = ["NEG", "chunked_attention", "decode_attention", "gqa_init",
-           "gqa_forward", "decode_rope_tables", "decode_valid", "gqa_decode"]
+           "gqa_forward", "decode_rope_tables", "decode_valid", "gqa_decode",
+           "mla_init", "mla_forward", "mla_decode"]
 
 NEG = -1e30
 
@@ -223,3 +226,114 @@ def gqa_decode(
     proj = out.reshape(b, 1, n_heads * head_dim) @ _w(params, "wo", x)
     return proj, cache_k, cache_v
 
+
+
+# --------------------------------------------------------------------------- #
+# MLA: multi-head latent attention (MiniCPM3 / DeepSeek-V2 style)
+# --------------------------------------------------------------------------- #
+
+def mla_init(generator, d_model: int, n_heads: int, *, q_lora: int,
+             kv_lora: int, nope_dim: int, rope_dim: int, v_dim: int,
+             device=None):
+    def dense(i, o):
+        return dense_init(generator, i, o, device=device)
+    return {
+        "w_dq": dense(d_model, q_lora),
+        "w_uq": dense(q_lora, n_heads * (nope_dim + rope_dim)),
+        "w_dkv": dense(d_model, kv_lora),
+        "w_kpe": dense(d_model, rope_dim),
+        "w_uk": dense(kv_lora, n_heads * nope_dim),
+        "w_uv": dense(kv_lora, n_heads * v_dim),
+        "wo": dense(n_heads * v_dim, d_model),
+    }
+
+
+def _mla_q(params, x, n_heads, nope_dim, rope_dim):
+    """(q_nope (b, s, H, nope), q_pe (b, s, H, rope)), not yet rotated."""
+    b, s, _ = x.shape
+    q = (x @ _w(params, "w_dq", x)) @ _w(params, "w_uq", x)
+    q = q.reshape(b, s, n_heads, nope_dim + rope_dim)
+    return q[..., :nope_dim], q[..., nope_dim:]
+
+
+def _mla_qkv(params, x, n_heads, nope_dim, rope_dim, v_dim, rope_theta):
+    """Full (non-absorbed) q/k/v materialisation for forward and prefill;
+    also the latent ``c_kv`` (b, s, kv_lora) and the rotated shared
+    ``k_pe`` (b, s, rope) the decode cache keeps."""
+    b, s, _ = x.shape
+    q_nope, q_pe = _mla_q(params, x, n_heads, nope_dim, rope_dim)
+    c_kv = x @ _w(params, "w_dkv", x)                       # latent
+    k_pe = x @ _w(params, "w_kpe", x)                       # shared by heads
+    k_nope = (c_kv @ _w(params, "w_uk", x)).reshape(b, s, n_heads, nope_dim)
+    v = (c_kv @ _w(params, "w_uv", x)).reshape(b, s, n_heads, v_dim)
+
+    pos = torch.arange(s, device=x.device)[None, :]
+    tables = rope_tables(pos, rope_dim, rope_theta)
+    q_pe = rotate(q_pe, tables)
+    k_pe_r = rotate(k_pe[:, :, None, :], tables)            # (b,s,1,r)
+    q_full = torch.cat([q_nope, q_pe], dim=-1)
+    k_full = torch.cat([k_nope, k_pe_r.expand(b, s, n_heads, rope_dim)],
+                       dim=-1)
+    return q_full, k_full, v, c_kv, k_pe_r[:, :, 0, :]
+
+
+def mla_forward(params, x, *, n_heads: int, q_lora: int, kv_lora: int,
+                nope_dim: int, rope_dim: int, v_dim: int,
+                rope_theta: float = 10_000.0, chunk: int = 1024):
+    """Forward/prefill MLA: causal attention over the materialised heads
+    at scale ``1/sqrt(nope + rope)``; returns ``(out, (c_kv, k_pe))`` so
+    prefill can seed the latent caches."""
+    b, s, _ = x.shape
+    q, k, v, c_kv, k_pe = _mla_qkv(params, x, n_heads, nope_dim, rope_dim,
+                                   v_dim, rope_theta)
+    scale = 1.0 / math.sqrt(nope_dim + rope_dim)
+    out = chunked_attention(q, k, v, causal=True, chunk=chunk, scale=scale)
+    proj = out.reshape(b, s, n_heads * v_dim) @ _w(params, "wo", x)
+    return proj, (c_kv, k_pe)
+
+
+def mla_decode(params, x, cache_ckv, cache_kpe, step: int, *, n_heads: int,
+               nope_dim: int, rope_dim: int, v_dim: int,
+               rope_theta: float = 10_000.0, tables=None, valid=None):
+    """Absorbed-matmul MLA decode: attention runs in the latent space, so
+    the cache stays ``kv_lora + rope_dim`` values a token, and ``w_uk`` /
+    ``w_uv`` are folded into the query and output paths.  Scores and the
+    latent context are float32 from cache-dtype operands (``_mm32``).
+
+    Slot ``step`` of ``cache_ckv`` (b, T, kv_lora) and ``cache_kpe``
+    (b, T, rope) is written IN PLACE; slots ``<= step`` are attended to.
+    ``tables`` (``decode_rope_tables`` at ``rope_dim``) and ``valid``
+    (``decode_valid``, flat) are built here when not given.  Returns
+    ``(out (b, 1, d), cache_ckv, cache_kpe)``."""
+    b, one, _ = x.shape
+    t, kv_lora = cache_ckv.shape[1], cache_ckv.shape[2]
+    step = int(step)
+    if tables is None:
+        tables = decode_rope_tables(b, step, rope_dim, rope_theta, x.device)
+    if valid is None:
+        valid = decode_valid(b, t, step, ring=False, device=x.device)
+
+    q_nope, q_pe = _mla_q(params, x, n_heads, nope_dim, rope_dim)
+    q_pe = rotate(q_pe, tables)
+    c_kv_new = x @ _w(params, "w_dkv", x)
+    k_pe_new = rotate((x @ _w(params, "w_kpe", x))[:, :, None, :], tables)
+    cache_ckv[:, step] = c_kv_new[:, 0].to(cache_ckv.dtype)
+    cache_kpe[:, step] = k_pe_new[:, 0, 0].to(cache_kpe.dtype)
+
+    # absorb W_uk into the query: q_lat (b, h, c)
+    w_uk = _w(params, "w_uk", x).reshape(kv_lora, n_heads, nope_dim)
+    q_lat = torch.einsum("bshn,chn->bshc", q_nope, w_uk)[:, 0]
+
+    scale = 1.0 / math.sqrt(nope_dim + rope_dim)
+    s_lat = _mm32("bhc,btc->bht", q_lat.to(cache_ckv.dtype), cache_ckv)
+    s_pe = _mm32("bhr,btr->bht", q_pe[:, 0].to(cache_kpe.dtype), cache_kpe)
+    s = (s_lat + s_pe) * scale
+    s = torch.where(valid[:, None, :], s, NEG)
+    p = torch.softmax(s, dim=-1)
+    ctx_lat = _mm32("bht,btc->bhc", p.to(cache_ckv.dtype), cache_ckv)
+
+    # absorb W_uv into the output projection
+    w_uv = _w(params, "w_uv", x).reshape(kv_lora, n_heads, v_dim)
+    ctx = torch.einsum("bhc,chv->bhv", ctx_lat.to(x.dtype), w_uv)
+    proj = ctx.reshape(b, n_heads * v_dim) @ _w(params, "wo", x)
+    return proj[:, None, :], cache_ckv, cache_kpe

@@ -90,19 +90,27 @@ def rmsnorm_init(dim: int, *, device=None) -> torch.Tensor:
     return torch.ones((dim,), dtype=PARAM_DTYPE, device=device)
 
 
+# parameters of two or more dims that the reference reads in float32: the
+# Mamba2 gated norm's (H, P) scale (``ssm._gated_norm``)
+_READ_IN_F32 = ("norm",)
+
+
 def cast_params(module: torch.nn.Module, dtype=None) -> torch.nn.Module:
-    """Cast the weight matrices and embedding tables of ``module`` (every
-    floating parameter of two or more dims) to ``dtype`` (default
-    ``DTYPE``, read now) in place; returns the module.
+    """Cast the weight matrices, conv taps and embedding tables of
+    ``module`` (every floating parameter of two or more dims but a Mamba2
+    ``norm``) to ``dtype`` (default ``DTYPE``, read now) in place; returns
+    the module.
 
     The reference keeps float32 masters and casts those to the activation
     dtype on every use (``w.astype(x.dtype)``, ``embed``); rounding is
     deterministic, so casting once gives the same operand values and a
     serving model need not hold the masters.  Norm scales stay float32:
-    the reference reads them in float32 (``rmsnorm``)."""
+    the reference reads them in float32 (``rmsnorm``, the gated norm), as
+    it reads the 1-D ``A_log``, ``dt_bias`` and ``D``."""
     dtype = DTYPE if dtype is None else dtype
-    for p in module.parameters():
-        if p.is_floating_point() and p.ndim >= 2:
+    for name, p in module.named_parameters():
+        if (p.is_floating_point() and p.ndim >= 2
+                and name.rsplit(".", 1)[-1] not in _READ_IN_F32):
             p.data = p.data.to(dtype)
     return module
 

@@ -3,7 +3,9 @@ and the port's ``Model``, both ways.
 
 The reference's parameter tree (nested dicts; ``jax.tree.map(np.asarray,
 params)`` on its side) stacks the layers on a leading ``L`` axis; the
-port holds one ``DecoderLayer`` per layer, named ``layers.<i>.<path>``.
+port holds one module per layer, named ``layers.<i>.<path>``.  The
+hybrid's shared blocks are a second stack, ``shared``, of its own length
+(``shared.<j>.<path>`` in the port).
 The ``(in, out)`` layout is kept as it is: the math is ``x @ W`` in both.
 
 - ``load_reference_params`` / ``load_reference_opt`` copy a reference tree
@@ -25,8 +27,11 @@ import torch
 from .model import Model
 from .transformer import load_tree
 
-__all__ = ["Stacked", "reference_tree", "load_reference_params",
+__all__ = ["Stacked", "STACKS", "reference_tree", "load_reference_params",
            "load_reference_opt"]
+
+# the top-level entries of the reference's tree that stack layers
+STACKS = ("layers", "shared")
 
 
 class Stacked(tuple):
@@ -42,49 +47,62 @@ def _put(tree: Dict, path, leaf) -> None:
 
 def reference_tree(named) -> Dict[str, Any]:
     """The reference's nested layout of a module's named parameters, or of
-    a mapping keyed like them: ``layers.<i>.<path>`` becomes the
-    ``Stacked`` leaf ``["layers"][<path>]``, every other ``a.b`` becomes
-    ``["a"]["b"]``.  No tensor is copied."""
+    a mapping keyed like them: ``<stack>.<i>.<path>`` (a stack of
+    ``STACKS``) becomes the ``Stacked`` leaf ``[<stack>][<path>]``, every
+    other ``a.b`` becomes ``["a"]["b"]``.  No tensor is copied."""
     if isinstance(named, torch.nn.Module):
         named = dict(named.named_parameters())
     tree: Dict[str, Any] = {}
     stacks: Dict[tuple, Dict[int, torch.Tensor]] = {}
     for name, t in named.items():
         parts = name.split(".")
-        if parts[0] == "layers":
-            stacks.setdefault(tuple(parts[2:]), {})[int(parts[1])] = t
+        if parts[0] in STACKS:
+            key = (parts[0],) + tuple(parts[2:])
+            stacks.setdefault(key, {})[int(parts[1])] = t
         else:
             _put(tree, parts, t)
     for path, by_layer in stacks.items():
         if sorted(by_layer) != list(range(len(by_layer))):
-            raise ValueError(f"layers.*.{'.'.join(path)}: layers "
+            raise ValueError(f"{path[0]}.*.{'.'.join(path[1:])}: layers "
                              f"{sorted(by_layer)} are not 0..L-1")
-        _put(tree, ("layers",) + path,
-             Stacked(by_layer[i] for i in range(len(by_layer))))
+        _put(tree, path, Stacked(by_layer[i] for i in range(len(by_layer))))
     return tree
 
 
-def _port_names(tree: Mapping[str, Any], n_layers: int) -> Dict[str, Any]:
-    """A reference tree -> ``{port parameter name: array}``, each stacked
-    leaf sliced into its ``n_layers`` layers."""
+def _stack_lengths(names) -> Dict[str, int]:
+    """{stack: its layer count} from port parameter names."""
+    seen: Dict[str, set] = {}
+    for name in names:
+        parts = name.split(".")
+        if parts[0] in STACKS:
+            seen.setdefault(parts[0], set()).add(parts[1])
+    return {k: len(v) for k, v in seen.items()}
+
+
+def _port_names(tree: Mapping[str, Any],
+                lengths: Mapping[str, int]) -> Dict[str, Any]:
+    """A reference tree -> ``{port parameter name: array}``, each leaf of
+    a stack sliced into the ``lengths[stack]`` layers the model has."""
     flat: Dict[str, Any] = {}
-    stack = [("", tree, False)]
-    while stack:
-        prefix, node, layered = stack.pop()
+    todo = [("", tree, None)]
+    while todo:
+        prefix, node, stack = todo.pop()
         for k, v in node.items():
             if isinstance(v, Mapping):
-                stack.append((f"{prefix}{k}.", v, layered or k == "layers"))
+                top = k if prefix == "" and k in STACKS else None
+                todo.append((f"{prefix}{k}.", v, stack or top))
                 continue
-            if not layered:
+            if stack is None:
                 flat[f"{prefix}{k}"] = v
                 continue
             v = np.asarray(v)
-            if v.shape[0] != n_layers:
-                raise ValueError(f"{k}: {v.shape[0]} stacked layers, the "
-                                 f"model has {n_layers}")
-            rest = f"{prefix}{k}".split(".", 1)[1]      # after "layers."
-            for i in range(n_layers):
-                flat[f"layers.{i}.{rest}"] = v[i]
+            n = lengths.get(stack, 0)
+            if v.shape[0] != n:
+                raise ValueError(f"{k}: {v.shape[0]} stacked layers in "
+                                 f"'{stack}', the model has {n}")
+            rest = f"{prefix}{k}".split(".", 1)[1]      # after "<stack>."
+            for i in range(n):
+                flat[f"{stack}.{i}.{rest}"] = v[i]
     return flat
 
 
@@ -92,7 +110,8 @@ def load_reference_params(model: Model, params: Mapping[str, Any]) -> Model:
     """Copy the reference tree ``params`` into ``model`` (cast to each
     parameter's dtype, moved to its device); every parameter must be
     given, with its shape, and nothing else.  Returns the model."""
-    load_tree(model, _port_names(params, model.cfg.n_layers))
+    lengths = _stack_lengths(name for name, _ in model.named_parameters())
+    load_tree(model, _port_names(params, lengths))
     return model
 
 
@@ -102,9 +121,8 @@ def load_reference_opt(state: Dict, opt: Mapping[str, Any]) -> Dict:
     port's ``state`` (``adamw_init``'s layout) in place; ``mu`` and ``nu``
     must name exactly the state's parameters, with their shapes.  Returns
     ``state``."""
-    n_layers = len({name.split(".")[1] for name in state["mu"]
-                    if name.startswith("layers.")})
-    flat = {key: _port_names(opt[key], n_layers) for key in ("mu", "nu")}
+    lengths = _stack_lengths(state["mu"])
+    flat = {key: _port_names(opt[key], lengths) for key in ("mu", "nu")}
     for key, given in flat.items():               # check all, then copy
         own = state[key]
         if set(given) != set(own):

@@ -1,16 +1,21 @@
-"""The dense decoder: per-layer modules, full-sequence forward, KV caches,
-prefill and one-token decode.
+"""Decoder stacks (dense, MLA, ssm, hybrid): per-layer modules,
+full-sequence forward, decode caches, prefill and one-token decode.
 
-The port of the dense family of ``repro.models.transformer``.  Where the
-reference stacks its layers on a leading ``L`` axis and drives them with
-``lax.scan``, the port holds an ``nn.ModuleList`` of ``DecoderLayer``s
-and loops; per-layer heterogeneity (gemma2's local/global alternation)
-is the same per-layer window limit.  Caches keep the reference's layout,
-one tensor per entry with the layers stacked on axis 0, and decode writes
-each layer's slot in place.
+The port of the dense, MLA, ssm and hybrid branches of
+``repro.models.transformer``.  Where the reference stacks its layers on a
+leading ``L`` axis and drives them with ``lax.scan``, the port holds an
+``nn.ModuleList`` of layers (``DecoderLayer`` for attention blocks,
+``MambaLayer`` for Mamba2 blocks) and loops; per-layer heterogeneity
+(gemma2's local/global alternation) is the same per-layer window limit.
+Caches keep the reference's layout, one tensor per entry with the layers
+stacked on axis 0; prefill fills them and decode writes each layer's
+slot, conv tails and SSM state in place.
 
-The MLA, MoE, ssm and hybrid branches wait for later slices (ROADMAP
-queue 1); ``models.model.build_model`` refuses those configs.
+The hybrid (zamba2) stacks its Mamba2 layers in segments of
+``attn_every``, each followed by one of ``n_shared_attn`` shared
+attention blocks, cycled; the shared blocks are a second stack,
+``shared``.  The MoE, enc-dec and vlm branches wait for later slices
+(ROADMAP queue 1); ``models.model.build_model`` refuses those configs.
 """
 from __future__ import annotations
 
@@ -25,13 +30,16 @@ from torch.utils.checkpoint import checkpoint
 from ..configs.base import ModelConfig
 from . import common
 from .attention import (decode_rope_tables, decode_valid, gqa_decode,
-                        gqa_forward, gqa_init)
+                        gqa_forward, gqa_init, mla_decode, mla_forward,
+                        mla_init)
 from .common import (embed, embedding_init, gelu, mlp_apply, mlp_init,
                      rmsnorm, rmsnorm_init, silu, unembed)
+from .ssm import CONV_K, mamba2_decode, mamba2_forward, mamba2_init
 
-__all__ = ["BIG_WINDOW", "DecoderLayer", "decoder_init", "decoder_forward",
-           "cache_spec", "init_cache", "decoder_prefill",
-           "decoder_decode_step"]
+__all__ = ["BIG_WINDOW", "DecoderLayer", "MambaLayer", "decoder_init",
+           "decoder_forward", "cache_spec", "init_cache", "decoder_prefill",
+           "decoder_decode_step", "hybrid_init", "hybrid_forward",
+           "hybrid_prefill", "hybrid_decode_step"]
 
 BIG_WINDOW = 1 << 30
 
@@ -41,13 +49,20 @@ BIG_WINDOW = 1 << 30
 # --------------------------------------------------------------------------- #
 
 def _attn_layer_init(generator, cfg: ModelConfig, *, device=None):
-    """One layer's parameter tree, the reference's names: ``ln1``, ``attn``
-    (``wq wk wv wo``), ``ln2``, ``mlp`` (``w_in w_gate w_out``) and, with
-    sandwich norms, ``ln1_post``/``ln2_post``.  ``generator=None`` only
-    allocates."""
+    """One attention layer's parameter tree, the reference's names:
+    ``ln1``, ``attn`` (GQA ``wq wk wv wo``, or MLA ``w_dq w_uq w_dkv
+    w_kpe w_uk w_uv wo``), ``ln2``, ``mlp`` (``w_in w_gate w_out``) and,
+    with sandwich norms, ``ln1_post``/``ln2_post``.  ``generator=None``
+    only allocates."""
+    if cfg.mla:
+        attn = mla_init(generator, cfg.d_model, cfg.n_heads, q_lora=cfg.q_lora,
+                        kv_lora=cfg.kv_lora, nope_dim=cfg.nope_dim,
+                        rope_dim=cfg.rope_dim, v_dim=cfg.v_dim, device=device)
+    else:
+        attn = gqa_init(generator, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                        cfg.hd, device=device)
     params = {"ln1": rmsnorm_init(cfg.d_model, device=device),
-              "attn": gqa_init(generator, cfg.d_model, cfg.n_heads,
-                               cfg.n_kv_heads, cfg.hd, device=device),
+              "attn": attn,
               "ln2": rmsnorm_init(cfg.d_model, device=device),
               "mlp": mlp_init(generator, cfg.d_model, cfg.d_ff, gated=True,
                               device=device)}
@@ -57,13 +72,26 @@ def _attn_layer_init(generator, cfg: ModelConfig, *, device=None):
     return params
 
 
-class DecoderLayer(nn.Module):
-    """One attention + MLP block.  ``layer["attn"]["wq"]`` reads as the
+def _mamba_layer_init(generator, cfg: ModelConfig, *, device=None):
+    """One Mamba2 layer's parameter tree: ``ln`` and ``mamba``
+    (``ssm.mamba2_init``'s names)."""
+    return {"ln": rmsnorm_init(cfg.d_model, device=device),
+            "mamba": mamba2_init(generator, cfg.d_model,
+                                 expand=cfg.ssm_expand,
+                                 head_p=cfg.ssm_head_p, state=cfg.ssm_state,
+                                 device=device)}
+
+
+class _Layer(nn.Module):
+    """A layer holding the parameter tree ``param_tree(None, cfg)`` allocates,
+    under the same names: ``layer["attn"]["wq"]`` reads as the
     reference's ``p["attn"]["wq"]``."""
+
+    param_tree = None
 
     def __init__(self, cfg: ModelConfig, *, device=None):
         super().__init__()
-        for name, val in _attn_layer_init(None, cfg, device=device).items():
+        for name, val in self.param_tree(None, cfg, device=device).items():
             if isinstance(val, dict):
                 setattr(self, name, nn.ParameterDict(
                     {k: nn.Parameter(v) for k, v in val.items()}))
@@ -72,6 +100,19 @@ class DecoderLayer(nn.Module):
 
     def __getitem__(self, name: str):
         return getattr(self, name)
+
+
+class DecoderLayer(_Layer):
+    """One attention (GQA or MLA) + MLP block."""
+
+    param_tree = staticmethod(_attn_layer_init)
+
+
+class MambaLayer(_Layer):
+    """One Mamba2 block: ``ln`` and ``mamba`` (``w_z w_x w_b w_c w_dt
+    conv_x conv_b conv_c A_log dt_bias D norm w_out``)."""
+
+    param_tree = staticmethod(_mamba_layer_init)
 
 
 @torch.no_grad()
@@ -117,10 +158,18 @@ def _act(cfg: ModelConfig):
 def _attn_layer_fwd(p, cfg: ModelConfig, x, window_limit, *,
                     causal=True, chunk=1024, collect_kv=False):
     h = rmsnorm(x, p["ln1"], cfg.rms_eps)
-    attn_out, kv = gqa_forward(
-        p["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-        head_dim=cfg.hd, rope_theta=cfg.rope_theta, causal=causal, window=window_limit, attn_softcap=cfg.attn_softcap,
-        query_scale=cfg.query_scale, chunk=chunk)
+    if cfg.mla:
+        attn_out, kv = mla_forward(
+            p["attn"], h, n_heads=cfg.n_heads, q_lora=cfg.q_lora,
+            kv_lora=cfg.kv_lora, nope_dim=cfg.nope_dim,
+            rope_dim=cfg.rope_dim, v_dim=cfg.v_dim,
+            rope_theta=cfg.rope_theta, chunk=chunk)
+    else:
+        attn_out, kv = gqa_forward(
+            p["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+            head_dim=cfg.hd, rope_theta=cfg.rope_theta, causal=causal,
+            window=window_limit, attn_softcap=cfg.attn_softcap,
+            query_scale=cfg.query_scale, chunk=chunk)
     if cfg.sandwich_norm:
         attn_out = rmsnorm(attn_out, p["ln1_post"], cfg.rms_eps)
     x = x + attn_out
@@ -139,6 +188,28 @@ def _window_limits(cfg: ModelConfig, n_layers: int):
             for i in range(n_layers)]
 
 
+def _mamba_kw(cfg: ModelConfig):
+    return dict(d_model=cfg.d_model, expand=cfg.ssm_expand,
+                head_p=cfg.ssm_head_p, state=cfg.ssm_state)
+
+
+def _mamba_layer_fwd(p, cfg: ModelConfig, x, chunk=256):
+    """``x + mamba(rmsnorm(x))`` over the full sequence, the SSD in chunks
+    of ``chunk`` (``mamba2_forward``'s default unless given)."""
+    return x + mamba2_forward(p["mamba"], rmsnorm(x, p["ln"], cfg.rms_eps),
+                              chunk=chunk, **_mamba_kw(cfg))
+
+
+def _remat(fn, cfg: ModelConfig):
+    """``fn`` under ``torch.utils.checkpoint`` when ``cfg.remat == "full"``
+    and autograd records (the reference's ``jax.checkpoint``): it keeps
+    only its inputs for the backward pass, which runs it again."""
+    if cfg.remat == "full" and torch.is_grad_enabled():
+        return functools.partial(checkpoint, fn, use_reentrant=False,
+                                 preserve_rng_state=False)
+    return fn
+
+
 # --------------------------------------------------------------------------- #
 # the decoder
 # --------------------------------------------------------------------------- #
@@ -146,13 +217,14 @@ def _window_limits(cfg: ModelConfig, n_layers: int):
 @torch.no_grad()
 def decoder_init(model, generator: torch.Generator) -> None:
     """Fill ``model``'s parameters in place from ``generator``: the
-    embedding table, each layer, the final norm and (untied) the unembed
-    table, in that order.  One layer's fresh tensors are alive at a time."""
+    embedding table, each layer (Mamba2 layers for the ssm family), the
+    final norm and (untied) the unembed table, in that order.  One layer's
+    fresh tensors are alive at a time."""
     cfg, dev = model.cfg, model.embed.device
     model.embed.copy_(embedding_init(generator, cfg.padded_vocab,
                                      cfg.d_model, device=dev))
     for layer in model.layers:
-        load_tree(layer, _attn_layer_init(generator, cfg, device=dev))
+        load_tree(layer, layer.param_tree(generator, cfg, device=dev))
     model.final_norm.fill_(1.0)
     if not cfg.tie_embeddings:
         model.unembed.copy_(embedding_init(generator, cfg.padded_vocab,
@@ -160,7 +232,9 @@ def decoder_init(model, generator: torch.Generator) -> None:
 
 
 def _unembed_w(model):
-    return model.embed if model.cfg.tie_embeddings else model.unembed
+    """The unembedding table: ``unembed`` where the model has one (untied,
+    not hybrid), else ``embed``."""
+    return getattr(model, "unembed", model.embed)
 
 
 def decoder_forward(model, cfg: ModelConfig, tokens, *, chunk=1024,
@@ -170,20 +244,21 @@ def decoder_forward(model, cfg: ModelConfig, tokens, *, chunk=1024,
     logits_slice: None -> full logits; "last" -> last position only;
     "hidden" -> the final-normed hidden states.  Returns (logits, aux).
     With ``cfg.remat == "full"`` and autograd recording, each layer runs
-    under ``torch.utils.checkpoint``.
+    under ``torch.utils.checkpoint``.  The ssm family's SSD runs in
+    chunks of ``cfg.ssd_chunk``.
     """
     x = embed(model.embed, tokens, scale_by_dim=cfg.sandwich_norm)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    layer = _attn_layer_fwd
-    if cfg.remat == "full" and torch.is_grad_enabled():
-        # each layer keeps only its input for the backward pass, which runs
-        # the layer's forward again (the reference's jax.checkpoint)
-        layer = functools.partial(checkpoint, _attn_layer_fwd,
-                                  use_reentrant=False,
-                                  preserve_rng_state=False)
-    for p_l, limit in zip(model.layers, _window_limits(cfg, cfg.n_layers)):
-        x, aux_l = layer(p_l, cfg, x, limit, chunk=chunk)
-        aux = aux + aux_l
+    if cfg.family == "ssm":
+        layer = _remat(_mamba_layer_fwd, cfg)
+        for p_l in model.layers:
+            x = layer(p_l, cfg, x, cfg.ssd_chunk)
+    else:
+        layer = _remat(_attn_layer_fwd, cfg)
+        for p_l, limit in zip(model.layers,
+                              _window_limits(cfg, cfg.n_layers)):
+            x, aux_l = layer(p_l, cfg, x, limit, chunk=chunk)
+            aux = aux + aux_l
     x = rmsnorm(x, model.final_norm, cfg.rms_eps)
     if logits_slice == "hidden":
         return x, aux
@@ -200,12 +275,30 @@ def cache_spec(cfg: ModelConfig, batch: int, cache_len: int
                ) -> Dict[str, Tuple[tuple, torch.dtype]]:
     """{name: (shape, dtype)} of this config's decode cache.
 
-    SWA-everywhere configs get a RING cache of ``min(window, cache_len)``
-    slots; paired local/global configs a ring for each local layer and a
-    full-length cache for each global one; the rest a flat cache."""
+    ssm: each layer's conv tails (``conv_x``, ``conv_b``, ``conv_c``, the
+    activation dtype) and SSD state (``ssm``, float32); hybrid: those, and
+    a flat KV cache per shared-block application; MLA: flat latent
+    ``ckv`` and rotated ``kpe`` caches.  SWA-everywhere configs get a RING
+    cache of ``min(window, cache_len)`` slots; paired local/global configs
+    a ring for each local layer and a full-length cache for each global
+    one; the rest a flat cache."""
     L = cfg.n_layers
     kv = (cfg.n_kv_heads, cfg.hd)
     dt = common.DTYPE
+    if cfg.family in ("ssm", "hybrid"):
+        hp, n = (cfg.ssm_heads, cfg.ssm_head_p), cfg.ssm_state
+        spec = {"conv_x": ((L, batch, CONV_K - 1) + hp, dt),
+                "conv_b": ((L, batch, CONV_K - 1, n), dt),
+                "conv_c": ((L, batch, CONV_K - 1, n), dt),
+                "ssm": ((L, batch) + hp + (n,), torch.float32)}
+        if cfg.family == "hybrid":
+            n_app = L // cfg.attn_every
+            spec["k"] = ((n_app, batch, cache_len) + kv, dt)
+            spec["v"] = ((n_app, batch, cache_len) + kv, dt)
+        return spec
+    if cfg.mla:
+        return {"ckv": ((L, batch, cache_len, cfg.kv_lora), dt),
+                "kpe": ((L, batch, cache_len, cfg.rope_dim), dt)}
     if cfg.paired_local_global:
         half = L // 2
         w = min(cfg.window, cache_len)
@@ -261,10 +354,29 @@ def _fill_flat(k_stack, cache_len: int):
     return out
 
 
+def _mamba_prefill(p_l, cfg: ModelConfig, x, cache, i: int):
+    """One Mamba2 layer over the prompt (SSD chunk ``cfg.ssd_chunk``):
+    writes its conv tails and final state into layer ``i`` of ``cache``;
+    returns the residual stream."""
+    out, (conv, state) = mamba2_forward(
+        p_l["mamba"], rmsnorm(x, p_l["ln"], cfg.rms_eps),
+        chunk=cfg.ssd_chunk, return_state=True, **_mamba_kw(cfg))
+    for name in ("x", "b", "c"):
+        cache[f"conv_{name}"][i] = conv[name]
+    cache["ssm"][i] = state
+    return x + out
+
+
 def decoder_prefill(model, cfg: ModelConfig, tokens, *, cache_len: int,
                     chunk=1024):
     """Prompt pass: returns (last-token logits, decode cache)."""
     x = embed(model.embed, tokens, scale_by_dim=cfg.sandwich_norm)
+    if cfg.family == "ssm":
+        cache = init_cache(cfg, x.shape[0], cache_len, device=x.device)
+        for i, p_l in enumerate(model.layers):
+            x = _mamba_prefill(p_l, cfg, x, cache, i)
+        x = rmsnorm(x[:, -1:, :], model.final_norm, cfg.rms_eps)
+        return unembed(_unembed_w(model), x, cap=cfg.final_softcap), cache
     ks, vs = [], []
     for p_l, limit in zip(model.layers, _window_limits(cfg, cfg.n_layers)):
         x, _, (k, v) = _attn_layer_fwd(p_l, cfg, x, limit, chunk=chunk,
@@ -272,7 +384,10 @@ def decoder_prefill(model, cfg: ModelConfig, tokens, *, cache_len: int,
         ks.append(k)
         vs.append(v)
     k_s, v_s = torch.stack(ks), torch.stack(vs)
-    if cfg.uses_swa_everywhere:
+    if cfg.mla:
+        cache = {"ckv": _fill_flat(k_s, cache_len),
+                 "kpe": _fill_flat(v_s, cache_len)}
+    elif cfg.uses_swa_everywhere:
         cache = {"k": _fill_ring(k_s, cache_len, cfg.window),
                  "v": _fill_ring(v_s, cache_len, cfg.window)}
     elif cfg.paired_local_global:
@@ -293,11 +408,46 @@ def decoder_prefill(model, cfg: ModelConfig, tokens, *, cache_len: int,
 
 def decoder_decode_step(model, cfg: ModelConfig, cache, tokens, step):
     """One-token decode: returns (logits (B, 1, V), cache).  ``cache`` is
-    updated in place (each layer writes its slot) and returned.  The RoPE
-    tables and each kind of layer's slot mask are built once a step and
-    shared by the layers."""
+    updated in place (each layer writes its slot, or its conv tails and
+    SSD state) and returned.  The RoPE tables and each kind of layer's
+    slot mask are built once a step and shared by the layers."""
     x = embed(model.embed, tokens, scale_by_dim=cfg.sandwich_norm)
     step, b, dev = int(step), x.shape[0], x.device
+    if cfg.family == "ssm":
+        for i, p_l in enumerate(model.layers):
+            x = _mamba_decode(p_l, cfg, x, cache, i)
+    elif cfg.mla:
+        kw = dict(n_heads=cfg.n_heads, nope_dim=cfg.nope_dim,
+                  rope_dim=cfg.rope_dim, v_dim=cfg.v_dim,
+                  rope_theta=cfg.rope_theta,
+                  tables=decode_rope_tables(b, step, cfg.rope_dim,
+                                            cfg.rope_theta, dev),
+                  valid=decode_valid(b, cache["ckv"].shape[2], step,
+                                     ring=False, device=dev))
+        for i, p_l in enumerate(model.layers):
+            hn = rmsnorm(x, p_l["ln1"], cfg.rms_eps)
+            a_out, _, _ = mla_decode(p_l["attn"], hn, cache["ckv"][i],
+                                     cache["kpe"][i], step, **kw)
+            x = _finish_block(p_l, cfg, x, a_out)
+    else:
+        x = _gqa_decode_layers(model, cfg, cache, x, step)
+    x = rmsnorm(x, model.final_norm, cfg.rms_eps)
+    return unembed(_unembed_w(model), x, cap=cfg.final_softcap), cache
+
+
+def _mamba_decode(p_l, cfg: ModelConfig, x, cache, i: int):
+    """One Mamba2 layer for one token, on layer ``i`` of ``cache`` in
+    place; returns the residual stream."""
+    conv = {name: cache[f"conv_{name}"][i] for name in ("x", "b", "c")}
+    out, _, _ = mamba2_decode(p_l["mamba"], rmsnorm(x, p_l["ln"], cfg.rms_eps),
+                              conv, cache["ssm"][i], **_mamba_kw(cfg))
+    return x + out
+
+
+def _gqa_decode_layers(model, cfg: ModelConfig, cache, x, step: int):
+    """The GQA decoder's layers for one token (see ``decoder_decode_step``);
+    returns the residual stream."""
+    b, dev = x.shape[0], x.device
     kw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
               rope_theta=cfg.rope_theta, attn_softcap=cfg.attn_softcap,
               query_scale=cfg.query_scale,
@@ -328,5 +478,104 @@ def decoder_decode_step(model, cfg: ModelConfig, cache, tokens, step):
                                      cache["v"][i], step, ring=ring,
                                      valid=valid[limits[i]], **kw)
             x = _finish_block(p_l, cfg, x, a_out)
+    return x
+
+
+# --------------------------------------------------------------------------- #
+# hybrid (zamba2): Mamba2 backbone + shared attention blocks
+# --------------------------------------------------------------------------- #
+
+@torch.no_grad()
+def hybrid_init(model, generator: torch.Generator) -> None:
+    """Fill a hybrid ``model`` in place from ``generator``: the embedding
+    table, each Mamba2 layer, each shared block, the final norm."""
+    cfg, dev = model.cfg, model.embed.device
+    model.embed.copy_(embedding_init(generator, cfg.padded_vocab,
+                                     cfg.d_model, device=dev))
+    for layer in list(model.layers) + list(model.shared):
+        load_tree(layer, layer.param_tree(generator, cfg, device=dev))
+    model.final_norm.fill_(1.0)
+
+
+def _hybrid_segments(cfg: ModelConfig) -> int:
+    """Segments of ``attn_every`` Mamba2 layers, each followed by a shared
+    block (0 when ``n_layers < attn_every``: no attention at all)."""
+    return cfg.n_layers // cfg.attn_every
+
+
+def _segment(model, cfg: ModelConfig, seg: int):
+    """(the segment's Mamba2 layers with their layer indices, its shared
+    block: the blocks are cycled)."""
+    lo = seg * cfg.attn_every
+    layers = list(enumerate(model.layers))[lo:lo + cfg.attn_every]
+    return layers, model.shared[seg % cfg.n_shared_attn]
+
+
+def hybrid_forward(model, cfg: ModelConfig, tokens, *, chunk=1024,
+                   logits_slice: Optional[str] = None):
+    """Full-sequence forward; the SSD runs at ``mamba2_forward``'s default
+    chunk (256), not ``cfg.ssd_chunk``, as in the reference.  Under remat
+    only the Mamba2 layers are recomputed; the shared blocks keep their
+    activations."""
+    x = embed(model.embed, tokens)
+    mamba = _remat(_mamba_layer_fwd, cfg)
+    for seg in range(_hybrid_segments(cfg)):
+        layers, shared = _segment(model, cfg, seg)
+        for _, p_l in layers:
+            x = mamba(p_l, cfg, x)
+        x, _ = _attn_layer_fwd(shared, cfg, x, BIG_WINDOW, chunk=chunk)
+    x = rmsnorm(x, model.final_norm, cfg.rms_eps)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if logits_slice == "hidden":
+        return x, aux
+    if logits_slice == "last":
+        x = x[:, -1:, :]
+    return unembed(_unembed_w(model), x, cap=cfg.final_softcap), aux
+
+
+def hybrid_prefill(model, cfg: ModelConfig, tokens, cache_len: int, *,
+                   chunk=1024):
+    """Prompt pass: (last-token logits, cache).  The SSD runs in chunks of
+    ``cfg.ssd_chunk``; the cache holds the segments' Mamba2 layers and
+    one flat KV cache per shared-block application."""
+    x = embed(model.embed, tokens)
+    n_seg = _hybrid_segments(cfg)
+    cache = init_cache(cfg, x.shape[0], cache_len, device=x.device)
+    for name in ("conv_x", "conv_b", "conv_c", "ssm"):
+        cache[name] = cache[name][:n_seg * cfg.attn_every]
+    s = x.shape[1]
+    for seg in range(n_seg):
+        layers, shared = _segment(model, cfg, seg)
+        for i, p_l in layers:
+            x = _mamba_prefill(p_l, cfg, x, cache, i)
+        x, _, (k, v) = _attn_layer_fwd(shared, cfg, x, BIG_WINDOW,
+                                       chunk=chunk, collect_kv=True)
+        cache["k"][seg, :, :s] = k
+        cache["v"][seg, :, :s] = v
+    x = rmsnorm(x[:, -1:, :], model.final_norm, cfg.rms_eps)
+    return unembed(_unembed_w(model), x, cap=cfg.final_softcap), cache
+
+
+def hybrid_decode_step(model, cfg: ModelConfig, cache, tokens, step):
+    """One-token decode: (logits (B, 1, V), cache), the cache updated in
+    place.  The shared blocks' RoPE tables and slot mask are built once a
+    step."""
+    x = embed(model.embed, tokens)
+    step, b, dev = int(step), x.shape[0], x.device
+    kw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
+              rope_theta=cfg.rope_theta, ring=False, window_limit=None,
+              tables=decode_rope_tables(b, step, cfg.hd, cfg.rope_theta, dev),
+              valid=decode_valid(b, cache["k"].shape[2], step, ring=False,
+                                 device=dev))
+    for seg in range(_hybrid_segments(cfg)):
+        layers, shared = _segment(model, cfg, seg)
+        for i, p_l in layers:
+            x = _mamba_decode(p_l, cfg, x, cache, i)
+        hn = rmsnorm(x, shared["ln1"], cfg.rms_eps)
+        a_out, _, _ = gqa_decode(shared["attn"], hn, cache["k"][seg],
+                                 cache["v"][seg], step, **kw)
+        x = x + a_out
+        hn = rmsnorm(x, shared["ln2"], cfg.rms_eps)
+        x = x + mlp_apply(shared["mlp"], hn)
     x = rmsnorm(x, model.final_norm, cfg.rms_eps)
     return unembed(_unembed_w(model), x, cap=cfg.final_softcap), cache

@@ -807,6 +807,38 @@ def test_tiny_model_prefill_and_decode_on_cuda_match_the_cpu(cuda):
                                    rtol=0.05, atol=0.08, err_msg=arch)
 
 
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-2.7b",
+                                  "minicpm3-4b"])
+def test_new_family_forward_prefill_and_decode_on_cuda_match_the_cpu(
+        cuda, arch):
+    """Each family this port added (ssm, hybrid, MLA), tiny, with the same
+    bfloat16 weights on the card and on the CPU: the forward, prefill and
+    12 decode steps (conv tails and SSD state, or latent caches, written
+    in place) agree at the bfloat16 bar (rtol 0.05 / atol 0.08)."""
+    from conftest import tiny_config
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.common import cast_params, make_generator
+    cfg = tiny_config(get_config(arch))
+    cpu = cast_params(build_model(cfg, device="cpu").init(make_generator(0)))
+    gpu = build_model(cfg, device="cuda")
+    cast_params(gpu).load_state_dict(cpu.state_dict())
+    toks = np.random.default_rng(24).integers(0, 200, (2, 24))
+    outs = []
+    for m in (cpu, gpu):
+        t = torch.as_tensor(toks, device=m.device)
+        with torch.no_grad():
+            full, _ = m.forward({"tokens": t[:, :16]})
+        logits, cache = m.prefill({"tokens": t[:, :12]}, 32)
+        seq = [full.float().cpu(), logits.float().cpu()]
+        for step in range(12, 24):
+            logits, cache = m.decode_step(cache, t[:, step:step + 1], step)
+            seq.append(logits.float().cpu())
+        outs.append(torch.cat(seq, 1))
+    np.testing.assert_allclose(outs[1].numpy(), outs[0].numpy(),
+                               rtol=0.05, atol=0.08, err_msg=arch)
+
+
 def _train_twin(cfg, batch, dev, seed=0):
     """One ``make_train_step`` step of ``cfg`` on ``dev`` from the seeded
     CPU weights: (metrics as floats, the updated parameters on the CPU)."""

@@ -34,7 +34,8 @@ def test_every_module_imports_without_jax_or_repro():
               "replication.transport", "replication.ship",
               "replication.replica", "replication.failover",
               "core.baselines", "configs", "models.common",
-              "models.attention", "models.transformer", "models.model",
+              "models.attention", "models.ssm", "models.transformer",
+              "models.model",
               "models.convert", "runtime.router", "runtime.serve_loop",
               "launch.serve", "optim", "optim.adamw", "runtime.steps",
               "runtime.checkpoint", "runtime.train_loop", "data.pipeline",

@@ -269,7 +269,23 @@ def _recorder(fn, waves, to_np, first):
 
 
 def test_server_twin_at_float32(f32):
-    cfg = tiny_config(get_config("h2o-danube-3-4b"))
+    _server_twin("h2o-danube-3-4b", dict(rtol=1e-5, atol=1e-5))
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-2.7b",
+                                  "minicpm3-4b"])
+def test_server_twin_new_families_at_float32(f32, arch):
+    """The same twin for the ssm, hybrid and MLA archs: every wave's rids,
+    every step's logits (the ssm and hybrid at rtol 1e-4 / atol 1e-5, the
+    SSD's bar; MLA at 1e-5) and the greedy tokens up to near-ties."""
+    ssm = get_config(arch).family in ("ssm", "hybrid")
+    _server_twin(arch, dict(rtol=1e-4 if ssm else 1e-5, atol=1e-5))
+
+
+def _server_twin(arch, tol):
+    """Both packages' servers over one submission stream: equal waves,
+    logits at ``tol`` and tokens up to the first near-tie of each row."""
+    cfg = tiny_config(get_config(arch))
     ref_model = r_build(cfg)
     params, _ = ref_model.init(jax.random.key(5))
     port_model = build_model(cfg, device="cpu")
@@ -305,7 +321,7 @@ def test_server_twin_at_float32(f32):
     assert [len(w) for w in port_logits] == [len(w) for w in ref_logits]
     for wp, wr in zip(port_logits, ref_logits):
         for a, b in zip(wp, wr):
-            np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
+            np.testing.assert_allclose(a, b, **tol)
 
     # tokens: equal up to the first near-tie step of each row
     by_wave = {}
@@ -335,6 +351,19 @@ def test_serve_launcher_on_the_cpu(capsys):
                 "2", "--reduced-width", "64", "--max-new", "6"])
     out = capsys.readouterr().out
     assert "12 requests queued" in out and "12 responses" in out
+
+
+@pytest.mark.parametrize("arch,layers", [("mamba2-130m", "2"),
+                                         ("zamba2-2.7b", "12"),
+                                         ("minicpm3-4b", "2")])
+def test_serve_launcher_serves_the_new_families(capsys, arch, layers):
+    from repro_torch.launch import serve
+    srv = serve.main(["--arch", arch, "--device", "cpu", "--requests", "12",
+                      "--reduced-layers", layers, "--reduced-width", "64",
+                      "--max-new", "6"])
+    out = capsys.readouterr().out
+    assert "12 requests queued" in out and "12 responses" in out
+    assert srv.model.cfg.family == get_config(arch).family
 
 
 def test_serve_launcher_refuses_a_checkpoint_until_training_lands(

@@ -146,7 +146,11 @@ def test_cross_entropy_value_and_grad(s, seq_chunk, cap):
     np.testing.assert_allclose(lt.grad.numpy(), np.asarray(r_g), **CE)
 
 
-@pytest.mark.parametrize("arch", [ARCH, "gemma2-27b"])
+# the ssm, hybrid and MLA archs, held at the same bars
+NEW = ["mamba2-130m", "zamba2-2.7b", "minicpm3-4b"]
+
+
+@pytest.mark.parametrize("arch", [ARCH, "gemma2-27b"] + NEW)
 def test_model_loss_and_every_gradient(f32, arch):
     cfg, ref, params, port = _twins(arch)
     batch = _np_batch(make_batch(cfg, batch=2, seq=16, seed=3))
@@ -180,6 +184,38 @@ def test_remat_full_and_none_give_the_same_gradients(monkeypatch):
         port.loss({k: torch.from_numpy(v) for k, v in batch.items()}
                   ).backward()
         assert len(calls) == per_layer * cfg.n_layers, remat
+        out.append({n: p.grad.clone() for n, p in port.named_parameters()})
+    for name in out[0]:
+        assert torch.equal(out[0][name], out[1][name]), name
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-2.7b"])
+def test_remat_recomputes_only_the_mamba_layers(monkeypatch, arch):
+    """Under ``remat="full"`` each Mamba2 layer's forward runs again in the
+    backward pass (2 calls a layer, 1 without), the hybrid's shared blocks
+    never (the reference's ``jax.checkpoint`` covers the Mamba2 body
+    alone); the gradients are the same either way."""
+    import repro_torch.models.transformer as p_tf
+    calls, fns = {"mamba": 0, "attn": 0}, {}
+    for key, name in (("mamba", "_mamba_layer_fwd"),
+                      ("attn", "_attn_layer_fwd")):
+        fns[key] = getattr(p_tf, name)
+
+        def counted(*a, _key=key, **k):
+            calls[_key] += 1
+            return fns[_key](*a, **k)
+        monkeypatch.setattr(p_tf, name, counted)
+    out = []
+    for remat, per_layer in (("full", 2), ("none", 1)):
+        cfg, _, _, port = _twins(arch, remat=remat)
+        n_seg = (cfg.n_layers // cfg.attn_every if cfg.family == "hybrid"
+                 else 0)
+        batch = _np_batch(make_batch(cfg, batch=2, seq=16, seed=4))
+        calls.update(mamba=0, attn=0)
+        port.loss({k: torch.from_numpy(v) for k, v in batch.items()}
+                  ).backward()
+        assert calls == {"mamba": per_layer * cfg.n_layers,
+                         "attn": n_seg}, remat
         out.append({n: p.grad.clone() for n, p in port.named_parameters()})
     for name in out[0]:
         assert torch.equal(out[0][name], out[1][name]), name
@@ -222,6 +258,28 @@ def test_train_step_matches_reference(f32, microbatches, transform):
     _assert_trees(reference_tree(state["mu"]), r_state["mu"], GRAD, "mu")
     _assert_trees(reference_tree(state["nu"]), r_state["nu"], GRAD, "nu")
     assert all(p.grad is None for p in port.parameters())
+
+
+@pytest.mark.parametrize("arch", NEW)
+def test_train_step_of_the_new_families_matches_reference(f32, arch):
+    """One jitted reference step against one port step (AdamW eps 1e-3,
+    see above) for the ssm, hybrid and MLA archs: loss, grad norm,
+    parameters, ``mu`` and ``nu``."""
+    cfg, ref, params, port = _twins(arch)
+    batch = _np_batch(make_batch(cfg, batch=2, seq=16, seed=9))
+    r_step = jax.jit(r_make_train_step(ref, RefAdamWConfig(lr=1e-3,
+                                                           eps=1e-3)))
+    r_state = r_adamw_init(params)
+    r_params, r_state, r_m = r_step(params, r_state,
+                                    {k: jnp.asarray(v) for k, v in batch.items()})
+    state = adamw_init(port)
+    m = make_train_step(port, AdamWConfig(lr=1e-3, eps=1e-3))(state, batch)
+    np.testing.assert_allclose(float(m["loss"]), float(r_m["loss"]), **GRAD)
+    np.testing.assert_allclose(float(m["grad_norm"]),
+                               float(r_m["grad_norm"]), **GRAD)
+    _assert_trees(reference_tree(port), r_params, GRAD, "params")
+    _assert_trees(reference_tree(state["mu"]), r_state["mu"], GRAD, "mu")
+    _assert_trees(reference_tree(state["nu"]), r_state["nu"], GRAD, "nu")
 
 
 def test_a_step_that_raises_changes_nothing():
@@ -334,8 +392,8 @@ def _npz(path):
         return {k: (z[k].shape, z[k].dtype) for k in z.files}
 
 
-def test_checkpoints_cross_the_packages_both_ways(tmp_path):
-    cfg, ref, params, port = _twins()
+def _cross_both_ways(tmp_path, arch):
+    cfg, ref, params, port = _twins(arch)
     params, opt = _ref_state(cfg, ref, params)
     RefCheckpointer(tmp_path / "ref").save(3, {"params": params, "opt": opt})
 
@@ -358,24 +416,67 @@ def test_checkpoints_cross_the_packages_both_ways(tmp_path):
     man = [c.manifest() for c in (RefCheckpointer(tmp_path / "ref"),
                                   Checkpointer(tmp_path / "port"))]
     assert man[0]["leaves"] == man[1]["leaves"] and man[0]["step"] == 3
-    assert man[1]["leaves"]["params//layers//attn//wq"]["shape"][0] == 2
+    return cfg, man[1]["leaves"]
+
+
+def test_checkpoints_cross_the_packages_both_ways(tmp_path):
+    _, leaves = _cross_both_ways(tmp_path, ARCH)
+    assert leaves["params//layers//attn//wq"]["shape"][0] == 2
+
+
+@pytest.mark.parametrize("arch", NEW)
+def test_new_family_checkpoints_cross_the_packages_both_ways(tmp_path, arch):
+    """The ssm, hybrid and MLA trees, optimizer state included, both ways:
+    zamba2's ``shared`` stack of ``n_shared_attn`` blocks beside its
+    ``layers``, the Mamba2 leaves under ``layers//mamba``."""
+    cfg, leaves = _cross_both_ways(tmp_path, arch)
+    if cfg.family in ("ssm", "hybrid"):
+        assert leaves["params//layers//mamba//norm"] == {
+            "shape": [cfg.n_layers, cfg.ssm_heads, cfg.ssm_head_p],
+            "dtype": "float32"}
+    if cfg.family == "hybrid":
+        assert leaves["params//shared//attn//wq"]["shape"][0] == 2
+        assert leaves["opt//mu//shared//mlp//w_in"]["shape"][0] == 2
+
+
+def _as_cast(params):
+    """The reference tree cast as ``cast_params`` casts: every leaf of two
+    or more dims a layer, but a Mamba2 ``norm``, to bfloat16."""
+    def cast(path, x):
+        per_layer = x.ndim - (path[0].key in ("layers", "shared"))
+        if per_layer < 2 or path[-1].key == "norm":
+            return x
+        return x.astype(jnp.bfloat16)
+    return jax.tree_util.tree_map_with_path(cast, params)
 
 
 def test_bfloat16_checkpoints_cross_the_packages(tmp_path):
     """A cast (serving) model's bfloat16 matrices travel as 2-byte void in
     both directions, norm scales as float32."""
-    cfg, ref, params, port = _twins()
+    _bf16_both_ways(tmp_path, ARCH)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-130m", "zamba2-2.7b"])
+def test_bfloat16_new_family_checkpoints_cross_the_packages(tmp_path, arch):
+    """As above for the ssm and hybrid trees: conv taps and projections
+    bfloat16; ``A_log``, ``dt_bias``, ``D`` and the gated norm's
+    ``(H, P)`` scale float32, as ``cast_params`` keeps them."""
+    leaves = _bf16_both_ways(tmp_path, arch)
+    assert leaves["params//layers//mamba//norm"]["dtype"] == "float32"
+    assert leaves["params//layers//mamba//conv_x"]["dtype"] == "bfloat16"
+
+
+def _bf16_both_ways(tmp_path, arch):
+    cfg, ref, params, port = _twins(arch)
     p_common.cast_params(port)
-    r_bf = jax.tree_util.tree_map_with_path(
-        lambda path, x: x if "ln" in str(path[-1]) or "norm" in str(path[-1])
-        else x.astype(jnp.bfloat16), params)       # as cast_params casts
+    r_bf = _as_cast(params)
     RefCheckpointer(tmp_path / "ref").save(1, {"params": r_bf})
     Checkpointer(tmp_path / "port").save(1, {"params": reference_tree(port)})
     assert (_npz(tmp_path / "ref" / "step_00000001")
             == _npz(tmp_path / "port" / "step_00000001"))
     assert (RefCheckpointer(tmp_path / "ref").manifest()["leaves"]
             == Checkpointer(tmp_path / "port").manifest()["leaves"])
-    _, _, _, other = _twins(seed=1)
+    _, _, _, other = _twins(arch, seed=1)
     p_common.cast_params(other)
     Checkpointer(tmp_path / "ref").restore({"params": reference_tree(other)})
     for (n, a), b in zip(port.named_parameters(), other.parameters()):
@@ -384,6 +485,7 @@ def test_bfloat16_checkpoints_cross_the_packages(tmp_path):
     for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(r_bf)):
         assert a.dtype == b.dtype and np.array_equal(
             np.asarray(a, np.float32), np.asarray(b, np.float32))
+    return Checkpointer(tmp_path / "port").manifest()["leaves"]
 
 
 def test_load_reference_opt_fills_the_state_in_place():
@@ -537,7 +639,18 @@ def test_train_launcher_refuses_a_mesh(capsys):
     assert "3(c)" in capsys.readouterr().err
 
 
-def test_train_launcher_default_arch_is_not_ported():
+def test_train_launcher_default_arch_is_not_ported(tmp_path, monkeypatch,
+                                                  capsys):
+    """The launcher's default arch, mamba2-130m (the ssm family), once
+    refused, now trains: ``--device cpu --reduced-layers 2 --steps 2``
+    with no ``--arch`` (its checkpoints under the default directory, here
+    a fresh temporary one) runs to step 2 with a finite loss."""
+    import tempfile
     from repro_torch.launch import train as launch
-    with pytest.raises(NotImplementedError, match="3\\(b\\)"):
-        launch.main(["--device", "cpu"])
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    out = launch.main(["--device", "cpu", "--reduced-layers", "2",
+                       "--steps", "2"])
+    assert out["final_step"] == 2 and len(out["history"]) == 2
+    assert all(np.isfinite(h["loss"]) for h in out["history"])
+    assert "mamba2-130m" in capsys.readouterr().out
+    assert latest_step(tmp_path / "repro_launch_ckpt") == 2
