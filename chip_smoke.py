@@ -20,19 +20,31 @@ Phases, one line of output each:
             drops row 2^24;
   lm_serve  the LM serving path, once for each of h2o-danube-3-4b (24
             layers, 3.84B parameters), zamba2-2.7b (54 Mamba2 layers and
-            2 shared attention blocks, 2.45B) and minicpm3-4b (62 MLA
-            layers, 4.07B), each at full width and depth with bfloat16
+            2 shared attention blocks, 2.45B), minicpm3-4b (62 MLA
+            layers, 4.07B), each at full width and depth, and
+            mixtral-8x7b at full width and 8 of its 32 layers (11.74B;
+            the full depth does not fit one card), with bfloat16
             weights, behind a Server whose COAX router runs on the device
             backend; 512 requests drawn as launch/serve.py draws them,
             drained in waves of 8; every admission equal to a
             numpy-backend twin router, one plan dispatch per admission on
             a built index, fused_scan launches counted around the drain;
             the first wave's logits against one forward (replayed at
-            float32 activations; as served, at bfloat16, for h2o), a
-            reduced-depth full-width prefill against the CPU (zamba2 at 12
-            layers, both shared blocks); prefill and decode ms against
-            their bounds, tokens/s, admission latency, a torch.profiler
-            breakdown; each model is freed (checked) before the next;
+            float32 activations, mixtral's at a capacity that drops no
+            pair; as served, at bfloat16, for h2o), a reduced-depth
+            full-width prefill against the CPU (zamba2 at 12 layers, both
+            shared blocks; mixtral at float32, its top-2 choices
+            compared); prefill and decode ms against their bounds,
+            tokens/s, admission latency, a torch.profiler breakdown; each
+            model is freed (checked) before the next;
+  lm_steps  qwen2-vl-2b (1,024 stub patch embeddings + 128 tokens) and
+            seamless-m4t-large-v2 (1,024 stub frames + a 1-token prompt)
+            at full width and depth, batch 8, through runtime/steps.py's
+            prefill and serve steps (the serve loop passes neither
+            patches nor frames; no COAX path): prefill and greedy decode
+            steps timed against their bounds, the decoded logits at
+            float32 activations against one forward, a 2-layer (2 + 2)
+            full-width prefill against the CPU;
   lm_train  curation through fused_scan, h2o-danube-3-4b trained at full
             width and depth, 2-layer full-width train steps card vs CPU
             (h2o and mamba2-130m), and the training launcher at its
@@ -92,6 +104,7 @@ prints no result and exits 3.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import re
@@ -1966,7 +1979,13 @@ LM_ARCH, LM_SEED, LM_REQUESTS = "h2o-danube-3-4b", 0, 512
 # the rehearsal's requests: enough for the router to build its index (256
 # pending), fewer waves of the CPU's slow bfloat16 products
 LM_REHEARSE_REQUESTS = 288
-LM_SERVE_ARCHS = (LM_ARCH, "zamba2-2.7b", "minicpm3-4b")
+LM_SERVE_ARCHS = (LM_ARCH, "zamba2-2.7b", "minicpm3-4b", "mixtral-8x7b")
+# archs served at a cut depth on one card: mixtral-8x7b's 32 layers hold
+# 46.57B parameters, 93.1 GB of bfloat16 weights, past the card's 80 GB;
+# 8 layers at full width hold 23.5 GB, and their float32 masters (47.0
+# GB, alive while they are initialised and cast) fit, where 16 layers'
+# (94 GB) would not
+SERVE_DEPTH = {"mixtral-8x7b": 8}
 LM_SERVE = dict(batch_size=8, max_new_tokens=16, cache_len=512, eos_token=0)
 LM_TOL = dict(rtol=0.05, atol=0.08)
 PROFILED_STEPS = 4            # decode steps of the first wave profiled
@@ -2003,14 +2022,29 @@ def mamba_ops(cfg, b, s):
     return proj + conv + ssd
 
 
+def ffn_ops(cfg, b, s):
+    """Operations of a block's feed-forward half over ``b`` x ``s`` tokens:
+    the gated MLP (the enc-dec's is not gated); for an MoE the router and
+    the experts' gated MLP over every slot of the ``(B, E, C)`` capacity
+    buffer, as the reference computes it (C = ``moe.capacity``; each
+    expert's weights are read whatever the routing)."""
+    from repro_torch.models.moe import capacity
+    d, ff, t = cfg.d_model, cfg.d_ff, b * s
+    if cfg.n_experts:
+        e = cfg.n_experts
+        c = capacity(s, cfg.top_k, cfg.capacity_factor, e)
+        return 2 * t * d * e + 3 * 2 * b * e * c * d * ff
+    return (2 if cfg.family == "encdec" else 3) * 2 * t * d * ff
+
+
 def attn_ops(cfg, b, s, kv_slots):
-    """Operations of one attention block (GQA or MLA, then the gated MLP)
+    """Operations of one attention block (GQA or MLA, then ``ffn_ops``)
     over ``b`` x ``s`` tokens: its products and the causal attention the
     data needs (``kv_slots`` valid slots for one token).  MLA decodes in
     the absorbed form over its latent cache."""
-    d, h, ff, t = cfg.d_model, cfg.n_heads, cfg.d_ff, b * s
-    pairs = s * (s + 1) // 2 if s > 1 else kv_slots
-    mlp = 3 * 2 * t * d * ff
+    d, h, t = cfg.d_model, cfg.n_heads, b * s
+    pairs = s * (s + 1) // 2 if kv_slots == 0 else kv_slots
+    mlp = ffn_ops(cfg, b, s)
     if not cfg.mla:
         kv, hd = cfg.n_kv_heads, cfg.hd
         return (2 * t * d * (h + 2 * kv) * hd + 2 * t * h * hd * d + mlp
@@ -2024,13 +2058,34 @@ def attn_ops(cfg, b, s, kv_slots):
     return proj + mlp + 2 * b * h * (2 * kl + rope) * pairs
 
 
-def decode_cache_bytes(cfg, b, kv_slots):
+def encdec_ops(cfg, b, s, kv_slots, enc_len):
+    """Operations of the enc-dec over ``b`` x ``s`` decoder tokens: for a
+    prompt (``s`` > 1 or ``kv_slots`` 0) the encoder over ``enc_len``
+    frames (bidirectional attention over every pair) and the cross
+    keys/values, then each decoder layer's causal attention block, its
+    cross-attention (queries and output projected, every encoder position
+    attended) and MLP."""
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    ops = 0
+    if kv_slots == 0:
+        te = b * enc_len
+        enc = (2 * te * d * (h + 2 * kv) * hd + 2 * te * h * hd * d
+               + ffn_ops(cfg, b, enc_len) + 2 * 2 * b * h * hd * enc_len ** 2)
+        ops += cfg.enc_layers * enc + cfg.n_layers * 2 * te * d * 2 * kv * hd
+    cross = (2 * 2 * b * s * d * h * hd + 2 * 2 * b * h * hd * s * enc_len)
+    return ops + cfg.n_layers * (attn_ops(cfg, b, s, kv_slots) + cross)
+
+
+def decode_cache_bytes(cfg, b, kv_slots, enc_len=0):
     """(bytes one decode step reads of the cache, bytes it writes): the
-    valid KV (or latent) slots read and one slot written a layer; a
-    Mamba2 layer's float32 ``(H, P, N)`` state and bfloat16 conv tails
-    read and written once."""
+    valid KV (or latent) slots read and one slot written a layer (the
+    enc-dec also reads its ``enc_len`` cross slots); a Mamba2 layer's
+    float32 ``(H, P, N)`` state and bfloat16 conv tails read and written
+    once."""
     L = cfg.n_layers
     read = write = 0
+    if cfg.family == "encdec":
+        read = L * b * enc_len * 2 * 2 * cfg.n_kv_heads * cfg.hd
     if cfg.family in ("ssm", "hybrid"):
         h, p, n = cfg.ssm_heads, cfg.ssm_head_p, cfg.ssm_state
         n_mamba = (L if cfg.family == "ssm"
@@ -2045,16 +2100,20 @@ def decode_cache_bytes(cfg, b, kv_slots):
     return read + n_attn * b * kv_slots * slot, write + n_attn * b * slot
 
 
-def lm_cost(cfg, b, s, kv_slots, weight_bytes, cache_out_bytes):
-    """(operations, bytes) of one prefill (``s`` > 1 prompt tokens) or one
-    decode step (``s`` = 1, attending ``kv_slots`` valid slots) of
-    ``cfg``'s family: every layer's products (``attn_ops``, ``mamba_ops``;
-    a hybrid runs its shared blocks once a segment), the last-token
-    unembed; every weight read once, the cache read (decode,
-    ``decode_cache_bytes``) and ``cache_out_bytes`` written once."""
+def lm_cost(cfg, b, s, kv_slots, weight_bytes, cache_out_bytes,
+            enc_len=0):
+    """(operations, bytes) of one prefill (``kv_slots`` 0: ``s`` prompt
+    tokens) or one decode step (``s`` = 1, attending ``kv_slots`` valid
+    slots) of ``cfg``'s family: every layer's products (``attn_ops``,
+    ``mamba_ops``, ``encdec_ops`` over ``enc_len`` frames; a hybrid runs
+    its shared blocks once a segment), the last-token unembed; every
+    weight read once, the cache read (decode, ``decode_cache_bytes``) and
+    ``cache_out_bytes`` written once."""
     L, d = cfg.n_layers, cfg.d_model
     ops = 2 * b * cfg.padded_vocab * d
-    if cfg.family == "ssm":
+    if cfg.family == "encdec":
+        ops += encdec_ops(cfg, b, s, kv_slots, enc_len)
+    elif cfg.family == "ssm":
         ops += L * mamba_ops(cfg, b, s)
     elif cfg.family == "hybrid":
         n_seg = L // cfg.attn_every
@@ -2062,9 +2121,12 @@ def lm_cost(cfg, b, s, kv_slots, weight_bytes, cache_out_bytes):
                         + attn_ops(cfg, b, s, kv_slots))
     else:
         ops += L * attn_ops(cfg, b, s, kv_slots)
-    cache_read = decode_cache_bytes(cfg, b, kv_slots)[0] if s == 1 else 0
+    cache_read = (decode_cache_bytes(cfg, b, kv_slots, enc_len)[0]
+                  if kv_slots else 0)
     nbytes = (weight_bytes + cache_read + cache_out_bytes + 4 * b * s
               + 4 * b * cfg.padded_vocab)
+    if kv_slots == 0 and enc_len:
+        nbytes += 4 * b * enc_len * d            # the float32 stub frames
     return ops, nbytes
 
 
@@ -2144,17 +2206,21 @@ def lm_profile(torch, fn, reps):
 
 def lm_serve_phase(torch, dev, card_line, arch=LM_ARCH):
     """The LM serving path on the card for ``arch``: ``build_model`` at
-    full width and depth (2 layers at width 64 in the rehearsal, a hybrid
-    one segment of 6, SSD and latent dims cut), float32 masters from a seeded
-    generator cast once to bfloat16, a ``Server`` whose router runs on the
-    device backend, 512 requests (288 in the rehearsal) drawn as
-    ``launch/serve.py`` draws them, drained.  Checks: every request answered once with its budget of
-    tokens; every admission equal to a numpy-backend twin router fed the
-    same submissions; fused_scan launches around the drain > 0 and one
-    plan dispatch per admission that met a built index; the first wave's
-    prefill + decode logits against a full forward over prompt + fed
-    tokens, and a reduced-depth full-width prefill (2 layers; a hybrid
-    12) on the card against the CPU, at rtol 0.05 / atol 0.08.
+    full width and depth (``SERVE_DEPTH`` cuts mixtral's; 2 layers at
+    width 64 in the rehearsal, a hybrid one segment of 6, SSD and latent
+    dims cut), float32 masters from a seeded generator cast once to
+    bfloat16, a ``Server`` whose router runs on the device backend, 512
+    requests (288 in the rehearsal) drawn as ``launch/serve.py`` draws
+    them, drained.  Checks: every request answered once with its budget
+    of tokens; every admission equal to a numpy-backend twin router fed
+    the same submissions; fused_scan launches around the drain > 0 and
+    one plan dispatch per admission that met a built index; the first
+    wave's prefill + decode logits against a full forward over prompt +
+    fed tokens (replayed at float32 activations; an MoE at a capacity
+    that drops no pair, ``no_drop``); a reduced-depth full-width prefill
+    (2 layers; a hybrid 12) on the card against the CPU, at rtol 0.05 /
+    atol 0.08 (an MoE at float32 activations, rtol 1e-4 / atol 2e-4,
+    counting the routing choices whose top-2 sets differ).
     ``release_lm`` frees the model after it returns."""
     import dataclasses
     from repro_torch.configs import get_config
@@ -2168,6 +2234,8 @@ def lm_serve_phase(torch, dev, card_line, arch=LM_ARCH):
     t_phase = time.perf_counter()
     cuda = dev != "cpu"
     cfg = get_config(arch)
+    if cuda and arch in SERVE_DEPTH:
+        cfg = dataclasses.replace(cfg, n_layers=SERVE_DEPTH[arch])
     # a reduced depth that keeps each kind of layer: a hybrid needs two
     # segments of attn_every Mamba2 layers to run both shared blocks
     depth = (cfg.attn_every * cfg.n_shared_attn if cfg.family == "hybrid"
@@ -2193,10 +2261,18 @@ def lm_serve_phase(torch, dev, card_line, arch=LM_ARCH):
     n_params = model.param_count()
     w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
     mem = torch.cuda.memory_allocated() if cuda else 0
-    say("lm_serve", f"{cfg.name}: {describe(cfg)}; {n_params:,} parameters, "
+    init_peak = torch.cuda.max_memory_allocated() if cuda else 0
+    if cuda:                    # the serving peak, apart from the masters'
+        torch.cuda.reset_peak_memory_stats()
+    cut = (f" (cut from {get_config(arch).n_layers} layers: the full depth's "
+           f"weights do not fit one card)" if arch in SERVE_DEPTH and cuda
+           else "")
+    say("lm_serve", f"{cfg.name}: {describe(cfg)}{cut}; {n_params:,} "
+        f"parameters ({model.active_param_count():,} active a token), "
         f"weights {w_bytes / 1e9:.3f} GB (float32 masters cast once: "
         f"matrices bfloat16, norm scales float32); init "
-        f"{init_s:.2f} s; device memory {mem / 2**30:.2f} GiB ({card_line})")
+        f"{init_s:.2f} s (peak {init_peak / 2**30:.2f} GiB); device memory "
+        f"{mem / 2**30:.2f} GiB ({card_line})")
 
     srv = Server(model, ServeConfig(**LM_SERVE), device=dev)
     router, twin = srv.router, CoaxRouter(backend="numpy")
@@ -2297,17 +2373,22 @@ def lm_serve_phase(torch, dev, card_line, arch=LM_ARCH):
         raise AssertionError("the serving run launched no fused_scan kernel")
 
     # the first wave against one forward over prompt + fed tokens, as
-    # served (bfloat16) and replayed at float32 activations
+    # served (bfloat16) and replayed at float32 activations; an MoE's
+    # replay runs at a capacity that drops no pair (its prefill, decode
+    # steps and forward keep different pairs at the config's)
     s0 = first["prompts"].shape[1]
     got = torch.cat(first["logits"], dim=1)
     want = first_wave_forward(torch, model, first)
     step_errs = (got - want).abs().amax(dim=(0, 2)).tolist()
-    f32_got, f32_want = first_wave_f32(torch, model, first)
+    f32_got, f32_want = first_wave_f32(torch, model, first, no_drop(cfg))
     f32_errs = (f32_got - f32_want).abs().amax(dim=(0, 2)).tolist()
+    replay = (f" at capacity factor {no_drop(cfg).capacity_factor:g} (no "
+              f"pair dropped; served at {cfg.capacity_factor:g})"
+              if cfg.n_experts else "")
     say("lm_serve", f"{cfg.name}: first wave, max |prefill/decode - "
         f"forward| by step: bfloat16 "
-        f"{', '.join(f'{e:.4f}' for e in step_errs)}; float32 replay "
-        f"{', '.join(f'{e:.2e}' for e in f32_errs)}")
+        f"{', '.join(f'{e:.4f}' for e in step_errs)}; float32 replay"
+        f"{replay} {', '.join(f'{e:.2e}' for e in f32_errs)}")
     if arch in BF16_WAVE_GATED:
         np.testing.assert_allclose(got.numpy(), want.numpy(), **LM_TOL)
     np.testing.assert_allclose(f32_got.numpy(), f32_want.numpy(), **F32_TOL)
@@ -2368,21 +2449,30 @@ def lm_serve_phase(torch, dev, card_line, arch=LM_ARCH):
         f"(torch.profiler): {prof}")
 
     # reduced depth at full width: prefill of one 32-token prompt, card vs
-    # CPU
-    # (seeded on the card, where init is fast, and copied to the host)
+    # CPU (an MoE at float32 activations, its routing choices compared)
     cfg2 = dataclasses.replace(cfg, n_layers=depth)
-    card = cast_params(build_model(cfg2, device=dev).init(
-        make_generator(LM_SEED + 1, dev)))
-    host = cast_params(build_model(cfg2, device="cpu"))
-    host.load_state_dict(card.state_dict())
+    card, host = card_and_host(torch, cfg2, dev)
     prompt = torch.from_numpy(np.random.default_rng(LM_SEED + 2).integers(
         1, cfg.padded_vocab - 1, (1, 32)).astype(np.int32))
-    l_host, _ = host.prefill({"tokens": prompt}, LM_SERVE["cache_len"])
-    l_card, _ = card.prefill({"tokens": prompt.to(dev)},
-                             LM_SERVE["cache_len"])
+    tol, routes = (F32_TOL if cfg.n_experts else LM_TOL), {}
+    with activations(torch.float32 if cfg.n_experts else None), \
+            moe_routes(routes if cfg.n_experts else None):
+        routes["at"] = "cpu"
+        l_host, _ = host.prefill({"tokens": prompt}, LM_SERVE["cache_len"])
+        routes["at"] = "card"
+        l_card, _ = card.prefill({"tokens": prompt.to(dev)},
+                                 LM_SERVE["cache_len"])
     np.testing.assert_allclose(l_card.float().cpu().numpy(),
-                               l_host.float().numpy(), **LM_TOL)
+                               l_host.float().numpy(), **tol)
     two_err = float((l_card.float().cpu() - l_host.float()).abs().max())
+    two = (f"{depth}-layer full-width prefill card == CPU (max_abs_err "
+           f"{two_err:.4f}); tolerance rtol 0.05 / atol 0.08")
+    if cfg.n_experts:
+        two = (f"{depth}-layer full-width prefill card == CPU at float32 "
+               f"activations (max_abs_err {two_err:.2e}, rtol 1e-4 / atol "
+               f"2e-4; top-2 expert sets differ for "
+               f"{route_diffs(torch, routes)}); bfloat16 tolerance rtol "
+               f"0.05 / atol 0.08")
     say("lm_serve", f"{cfg.name}: checks passed: {len(results)} requests "
         f"answered once with their budgets; {admits[0]} admissions == numpy "
         f"twin router; first wave ({first['prompts'].shape[0]} x {s0} "
@@ -2390,9 +2480,7 @@ def lm_serve_phase(torch, dev, card_line, arch=LM_ARCH):
         f"at float32 (max_abs_err {f32_err:.2e}, rtol 1e-4 / atol 2e-4), "
         f"at bfloat16 max_abs_err {wave_err:.4f} ("
         f"{'held' if arch in BF16_WAVE_GATED else 'not held'} at the "
-        f"bfloat16 bar); {depth}-layer full-width prefill "
-        f"card == CPU (max_abs_err {two_err:.4f}); tolerance rtol 0.05 / "
-        f"atol 0.08; phase {time.perf_counter() - t_phase:.1f} s")
+        f"bfloat16 bar); {two}; phase {time.perf_counter() - t_phase:.1f} s")
     return dict(launches=launches, admits=admits[0],
                 indexed=len(waves_per_admit))
 
@@ -2408,27 +2496,100 @@ def first_wave_forward(torch, model, first):
     return full[:, s0 - 1:s0 - 1 + len(first["logits"])].float().cpu()
 
 
-def first_wave_f32(torch, model, first):
+def first_wave_f32(torch, model, first, cfg):
     """The first wave replayed at float32 activations on the served
-    (bfloat16) weights: (its prefill + decode logits, the forward's at
-    the same positions), both on the CPU.  It holds the caches, the
-    recurrence and the SSD duality at full width and depth without
-    bfloat16's rounding, which compounds over a deep stack."""
+    (bfloat16) weights, the model reading ``cfg``: (its prefill + decode
+    logits, the forward's at the same positions), both on the CPU.  It
+    holds the caches, the recurrence and the SSD duality at full width
+    and depth without bfloat16's rounding, which compounds over a deep
+    stack."""
+    keep = model.cfg
+    model.cfg = cfg
+    try:
+        with activations(torch.float32):
+            s0 = first["prompts"].shape[1]
+            logits, cache = model.prefill({"tokens": first["prompts"]},
+                                          LM_SERVE["cache_len"])
+            outs = [logits.float().cpu()]
+            for i, tok in enumerate(first["fed"]):
+                logits, cache = model.decode_step(cache, tok, s0 + i)
+                outs.append(logits.float().cpu())
+            del cache
+            return (torch.cat(outs, dim=1),
+                    first_wave_forward(torch, model, first))
+    finally:
+        model.cfg = keep
+
+
+def no_drop(cfg):
+    """``cfg`` at a capacity that drops no pair (``n_experts / top_k``:
+    an expert takes every token of a row); ``cfg`` itself without
+    experts."""
+    if not cfg.n_experts:
+        return cfg
+    import dataclasses
+    return dataclasses.replace(cfg,
+                               capacity_factor=cfg.n_experts / cfg.top_k)
+
+
+@contextlib.contextmanager
+def activations(dtype):
+    """The models' activation dtype set to ``dtype`` (None: unchanged)
+    for the block."""
     import repro_torch.models.common as common
     keep = common.DTYPE
-    common.DTYPE = torch.float32
+    common.DTYPE = keep if dtype is None else dtype
     try:
-        s0 = first["prompts"].shape[1]
-        logits, cache = model.prefill({"tokens": first["prompts"]},
-                                      LM_SERVE["cache_len"])
-        outs = [logits.float().cpu()]
-        for i, tok in enumerate(first["fed"]):
-            logits, cache = model.decode_step(cache, tok, s0 + i)
-            outs.append(logits.float().cpu())
-        del cache
-        return torch.cat(outs, dim=1), first_wave_forward(torch, model, first)
+        yield
     finally:
         common.DTYPE = keep
+
+
+@contextlib.contextmanager
+def moe_routes(routes):
+    """With a dict: each MoE routing choice made in the block, its expert
+    ids (B, S, k) on the CPU, kept under ``routes[routes["at"]]``."""
+    if routes is None:
+        yield
+        return
+    import repro_torch.models.moe as moe
+    route = moe.route
+
+    def recording(router, x, top_k):
+        out = route(router, x, top_k)
+        routes.setdefault(routes["at"], []).append(out[2].cpu())
+        return out
+    moe.route = recording
+    try:
+        yield
+    finally:
+        moe.route = route
+
+
+def route_diffs(torch, routes):
+    """"n of m tokens' routing choices" between the card's and the CPU's
+    recorded expert ids (each token's top-k as a set)."""
+    pairs = list(zip(routes["card"], routes["cpu"]))
+    if len(pairs) != len(routes["cpu"]) or not pairs:
+        raise AssertionError("the card and the CPU routed a different "
+                             "number of times")
+    diff = sum(int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+               for a, b in pairs)
+    return f"{diff} of {sum(a[..., 0].numel() for a, _ in pairs)} choices"
+
+
+def card_and_host(torch, cfg, dev):
+    """(a model of ``cfg`` on ``dev``, the same weights on the CPU), cast
+    once to bfloat16: seeded on ``dev``, where init is fast, and copied to
+    the host without allocating float32 masters there."""
+    from repro_torch.models import build_model
+    from repro_torch.models.common import cast_params, make_generator
+    card = cast_params(build_model(cfg, device=dev).init(
+        make_generator(LM_SEED + 1, dev)))
+    host = build_model(cfg, device="meta")
+    host.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()},
+                         assign=True)
+    return card, host
 
 
 def release_lm(torch, phase="lm_serve", limit=1 << 30):
@@ -2444,6 +2605,197 @@ def release_lm(torch, phase="lm_serve", limit=1 << 30):
                              f"the {phase} phase: the model was not freed")
     torch.cuda.reset_peak_memory_stats()
     say(phase, f"model freed: {left / 2**20:.1f} MiB still allocated")
+
+
+# the lm_steps phase: the vlm and the enc-dec, which the serve loop cannot
+# serve (it hands prefill the tokens alone), driven as the reference's dry
+# run drives them, through runtime/steps.py, at full width and depth
+LM_STEPS_ARCHS = ("qwen2-vl-2b", "seamless-m4t-large-v2")
+LM_STEPS = {
+    # the config's 1,024 stub patch embeddings + 128 text tokens; a cache
+    # of 1,280 holds the prompt and the 16 decode steps
+    "qwen2-vl-2b": dict(batch=8, stub=1024, text=128, cache_len=1280,
+                        steps=16),
+    # 1,024 stub frames and a 1-token decoder prompt (the reference's
+    # prefill ``input_specs``)
+    "seamless-m4t-large-v2": dict(batch=8, stub=1024, text=1, cache_len=512,
+                                  steps=32),
+}
+LM_STEPS_REHEARSE = dict(batch=2, stub=16, text=8, cache_len=64, steps=4)
+# the vlm runs at an attention chunk of 128: the chunked attention (the
+# reference's and the port's) takes a sequence that is a multiple of its
+# chunk, and the config's 1,024 does not divide 1,024 + 128 = 1,152
+VLM_CHUNK = 128
+
+
+def lm_steps_phase(torch, dev, card_line, arch):
+    """The vlm or the enc-dec on the card through ``runtime.steps``'s
+    ``make_prefill_step`` and ``make_serve_step`` (the serve loop passes
+    no patches or frames, as in the reference; so this phase runs no COAX
+    path): ``build_model`` at full width and depth (2 layers at width 64
+    in the rehearsal), float32 masters from a seeded generator cast once
+    to bfloat16; seeded stub inputs (``LM_STEPS``); one prefill and greedy
+    decode steps, each timed against its ``lm_cost`` bound.  Checks:
+    finite logits; the prefill + decode logits replayed at float32
+    activations against one forward over the prompt + fed tokens (rtol
+    1e-4 / atol 2e-4); a 2-layer (enc-dec 2 + 2) full-width prefill on
+    the card against the CPU at rtol 0.05 / atol 0.08.  ``release_lm``
+    frees the model after it returns."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import reduced
+    from repro_torch.models import build_model
+    from repro_torch.models.common import cast_params, make_generator, unembed
+    from repro_torch.runtime.steps import make_prefill_step, make_serve_step
+
+    t_phase = time.perf_counter()
+    cuda = dev != "cpu"
+    cfg = get_config(arch)
+    run = LM_STEPS[arch] if cuda else LM_STEPS_REHEARSE
+    vlm = cfg.family == "vlm"
+    if not cuda:
+        cfg = reduced(cfg, 2, 64)
+        if vlm:                 # M-RoPE's sections split a head of 16
+            cfg = dataclasses.replace(cfg, head_dim=16,
+                                      mrope_sections=(2, 3, 3))
+    if vlm:
+        cfg = dataclasses.replace(cfg, attn_chunk=VLM_CHUNK)
+    b, text, steps, cache_len = (run["batch"], run["text"], run["steps"],
+                                 run["cache_len"])
+    n_stub = cfg.n_patches if vlm else run["stub"]
+    key, enc_len = ("patches", 0) if vlm else ("frames", n_stub)
+    s_total = text + (n_stub if vlm else 0)     # the prompt's positions
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    model = cast_params(build_model(cfg, device=dev).init(
+        make_generator(LM_SEED, dev)))
+    sync(torch, dev)
+    init_s = time.perf_counter() - t0
+    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    # a decode step reads the decoder's weights alone
+    dec_w_bytes = w_bytes - sum(
+        p.numel() * p.element_size() for n, p in model.named_parameters()
+        if n.startswith("enc_"))
+    init_peak = torch.cuda.max_memory_allocated() if cuda else 0
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    shape = (f"{cfg.n_layers} layers, d_model {cfg.d_model}, heads "
+             f"{cfg.n_heads}/{cfg.n_kv_heads} x {cfg.hd}")
+    shape += (f", M-RoPE sections {cfg.mrope_sections}, attention chunk "
+              f"{cfg.attn_chunk}" if vlm else
+              f" (decoder) + {cfg.enc_layers} encoder layers")
+    say("lm_steps", f"{cfg.name}: {shape}; {model.param_count():,} "
+        f"parameters, weights {w_bytes / 1e9:.3f} GB; init {init_s:.2f} s "
+        f"(peak {init_peak / 2**30:.2f} GiB); {b} x ({n_stub} stub {key} "
+        f"+ {text} tokens), cache {cache_len}, {steps} greedy steps; "
+        f"through make_prefill_step / make_serve_step, no COAX path "
+        f"({card_line})")
+
+    rng = np.random.default_rng(LM_SEED)
+    batch = {key: rng.normal(0, 1, (b, n_stub, cfg.d_model)).astype(
+                 np.float32),
+             "tokens": rng.integers(1, cfg.padded_vocab - 1, (b, text))
+             .astype(np.int32)}
+    prefill, serve = make_prefill_step(model, cache_len), make_serve_step(model)
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    logits, cache = prefill(batch)
+    sync(torch, dev)
+    pre_ms = (time.perf_counter() - t0) * 1e3
+    cache_bytes = sum(c.numel() * c.element_size() for c in cache.values())
+    pre_bound = lm_bound_ms(*lm_cost(cfg, b, s_total, 0, w_bytes,
+                                     cache_bytes, enc_len))
+    outs, fed, decodes = [logits.float().cpu()], [], []
+    for i in range(steps):
+        tok = logits[:, -1].argmax(dim=-1).to(torch.int32)[:, None]
+        step = s_total + i
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        logits, cache = serve(cache, tok, step)
+        sync(torch, dev)
+        decodes.append(((time.perf_counter() - t0) * 1e3, lm_bound_ms(
+            *lm_cost(cfg, b, 1, step + 1, dec_w_bytes,
+                     decode_cache_bytes(cfg, b, step + 1, enc_len)[1],
+                     enc_len))))
+        fed.append(tok)
+        outs.append(logits.float().cpu())
+    del cache
+    got = torch.cat(outs, dim=1)
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{cfg.name}: logits are not finite")
+
+    # prefill + decode replayed at float32 activations, against one forward
+    # over the prompt and the fed tokens (the vlm's in one attention chunk)
+    with activations(torch.float32):
+        logits, cache = prefill(batch)
+        rep = [logits.float().cpu()]
+        for i, tok in enumerate(fed):
+            logits, cache = serve(cache, tok, s_total + i)
+            rep.append(logits.float().cpu())
+        del cache
+        full = {key: torch.from_numpy(batch[key]).to(dev),
+                "tokens": torch.cat([torch.from_numpy(batch["tokens"]).to(
+                    dev)] + fed, dim=1)}
+        with torch.no_grad():
+            hidden, _ = model.forward(
+                full, chunk=s_total + steps if vlm else None,
+                logits_slice="hidden")
+            want = unembed(model.embed, hidden[:, s_total - 1:],
+                           cap=cfg.final_softcap).cpu()   # both tie
+        rep = torch.cat(rep, dim=1)
+        del hidden
+    f32_err = float((rep - want).abs().max())
+    bf16_err = float((got - want).abs().max())
+    np.testing.assert_allclose(rep.numpy(), want.numpy(), **F32_TOL)
+    del rep, want, got
+
+    prof = "not measured (no card)"
+    if cuda:
+        p_pre = lm_profile(torch, lambda: prefill(batch), 1)
+        _, cache = prefill(batch)
+        i_step = iter(range(len(fed)))
+
+        def one_step():
+            i = next(i_step)
+            serve(cache, fed[i], s_total + i)
+        p_dec = lm_profile(torch, one_step, min(PROFILED_STEPS, len(fed)))
+        del cache
+        prof = "; ".join(
+            f"{name}: {p[0]:.3f} ms wall, card busy {p[1]:.3f} ms "
+            f"({100 * p[1] / p[0]:.1f}%), {p[2]:.0f} kernels a call; top: "
+            f"{p[3]}" if p else f"{name}: no device time in the trace"
+            for name, p in (("prefill", p_pre), ("decode step", p_dec)))
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    dec_ms = float(np.median([m for m, _ in decodes]))
+    dec_bound = float(np.median([bnd[0] for _, bnd in decodes]))
+    dec_s = sum(m for m, _ in decodes) / 1e3
+    say("lm_steps", f"{cfg.name}: prefill {pre_ms:.3f} ms (bound "
+        f"{pre_bound[0]:.3f} by {pre_bound[1]}); decode p50 {dec_ms:.3f} "
+        f"ms/step over {steps} steps (bound p50 {dec_bound:.3f} by "
+        f"{decodes[0][1][1]}), {b * steps / dec_s:.1f} tokens/s; peak "
+        f"device memory {peak / 2**30:.2f} GiB; profile: {prof} "
+        f"({card_line})")
+
+    # 2 layers (the enc-dec 2 + 2) at full width: one prompt, card vs CPU
+    cfg2 = dataclasses.replace(cfg, n_layers=2,
+                               enc_layers=2 if enc_len else 0)
+    card, host = card_and_host(torch, cfg2, dev)
+    one = {k: torch.from_numpy(v[:1]) for k, v in batch.items()}
+    l_host, _ = host.prefill(one, cache_len)
+    l_card, _ = card.prefill({k: v.to(dev) for k, v in one.items()},
+                             cache_len)
+    np.testing.assert_allclose(l_card.float().cpu().numpy(),
+                               l_host.float().numpy(), **LM_TOL)
+    two_err = float((l_card.float().cpu() - l_host.float()).abs().max())
+    say("lm_steps", f"{cfg.name}: checks passed: logits finite; prefill + "
+        f"{steps} decode steps == forward at float32 activations "
+        f"(max_abs_err {f32_err:.2e}, rtol 1e-4 / atol 2e-4; as served at "
+        f"bfloat16 {bf16_err:.4f}, not held); 2-layer"
+        f"{' (+ 2 encoder)' if enc_len else ''} full-width prefill card == "
+        f"CPU (max_abs_err {two_err:.4f}, rtol 0.05 / atol 0.08); phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
 
 
 # the lm_train phase: the training launcher's sizes (50,000-doc corpus,
@@ -2589,13 +2941,10 @@ def train_twin(torch, cfg, batch, dev, dtype, weights):
     """One ``make_train_step`` step of ``cfg`` on ``dev`` at activation
     dtype ``dtype``, from ``weights`` (``twin_weights``): (loss and grad
     norm as floats, the updated parameters on the CPU)."""
-    import repro_torch.models.common as common
     from repro_torch.models import build_model
     from repro_torch.optim import AdamWConfig, adamw_init
     from repro_torch.runtime.steps import make_train_step
-    keep = common.DTYPE
-    common.DTYPE = getattr(torch, dtype)
-    try:
+    with activations(getattr(torch, dtype)):
         model = build_model(cfg, device=dev)
         model.load_state_dict(weights)
         state = adamw_init(model)
@@ -2603,8 +2952,6 @@ def train_twin(torch, cfg, batch, dev, dtype, weights):
                                                eps=TWIN_EPS))(state, batch)
         out = {k: float(m[k]) for k in ("loss", "grad_norm")}
         params = {n: p.detach().cpu() for n, p in model.named_parameters()}
-    finally:
-        common.DTYPE = keep
     return out, params
 
 
@@ -2816,8 +3163,15 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(SRC))
     if args.rehearse:
+        # one intra-op thread: the rehearsal's tensors are small, and on a
+        # shared host (a test runs it beside other test workers) a pool of
+        # threads waiting at each product's barrier for threads the host
+        # has descheduled slowed its first LM phase from 5 s to 394 s
+        torch.set_num_threads(1)
         for arch in LM_SERVE_ARCHS:
             lm_serve_phase(torch, "cpu", "no card", arch)
+        for arch in LM_STEPS_ARCHS:
+            lm_steps_phase(torch, "cpu", "no card", arch)
         lm_train_phase(torch, "cpu", "no card")
         run = main_phase(torch, "cpu", REHEARSE)
         segs = segments_phase(torch, run, REHEARSE, "cpu")
@@ -2848,6 +3202,10 @@ def main(argv=None) -> int:
         lm_serve_phase(torch, "cuda", card_line, arch)
         release_lm(torch)
         mark(f"lm_serve {arch}")
+    for arch in LM_STEPS_ARCHS:
+        lm_steps_phase(torch, "cuda", card_line, arch)
+        release_lm(torch, "lm_steps")
+        mark(f"lm_steps {arch}")
     lm_train_phase(torch, "cuda", card_line)
     release_lm(torch, "lm_train")
     mark("lm_train")

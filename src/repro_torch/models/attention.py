@@ -1,10 +1,11 @@
-"""Attention layers: GQA (RoPE, sliding window, softcap) with chunked
-prefill attention and single-token decode over a ring or flat KV cache,
-and MLA (MiniCPM3/DeepSeek-V2-style multi-head latent attention), whose
-decode runs in the latent space over ``ckv``/``kpe`` caches.
+"""Attention layers: GQA (RoPE or Qwen2-VL's M-RoPE, sliding window,
+softcap) with chunked prefill attention and single-token decode over a
+ring or flat KV cache, MLA (MiniCPM3/DeepSeek-V2-style multi-head latent
+attention), whose decode runs in the latent space over ``ckv``/``kpe``
+caches, and the enc-dec's cross-attention (non-causal, no RoPE, over the
+encoder's keys and values).
 
-The port of ``repro.models.attention`` (cross-attention waits for the
-enc-dec slice, ROADMAP queue 1).  Scores and outputs are float32 from
+The port of ``repro.models.attention``.  Scores and outputs are float32 from
 activation-dtype operands, as the reference's
 ``preferred_element_type=jnp.float32``: the operands are upcast (exact,
 bfloat16 embeds in float32) before each product, and the probabilities
@@ -14,15 +15,17 @@ are cast back to the value dtype before the PV product.  Masks use
 from __future__ import annotations
 
 import math
-from typing import Mapping, Optional
+from typing import Mapping, Optional, Tuple
 
 import torch
 
-from .common import _w, dense_init, rope_tables, rotate, softcap
+from .common import (_w, dense_init, mrope_tables, rope_tables, rotate,
+                     softcap)
 
 __all__ = ["NEG", "chunked_attention", "decode_attention", "gqa_init",
            "gqa_forward", "decode_rope_tables", "decode_valid", "gqa_decode",
-           "mla_init", "mla_forward", "mla_decode"]
+           "mla_init", "mla_forward", "mla_decode", "cross_attn_forward",
+           "cross_kv"]
 
 NEG = -1e30
 
@@ -140,6 +143,8 @@ def gqa_forward(
     params, x, *,
     n_heads: int, n_kv: int, head_dim: int,
     rope_theta: float = 10_000.0,
+    mrope_sections: Optional[Tuple[int, int, int]] = None,
+    positions3: Optional[torch.Tensor] = None,
     causal: bool = True,
     window: Optional[int] = None,
     attn_softcap: Optional[float] = None,
@@ -147,12 +152,17 @@ def gqa_forward(
     chunk: int = 1024,
 ):
     """Prefill/forward attention; returns ``(out, (k, v))`` so prefill can
-    seed the decode cache."""
+    seed the decode cache.  Positions are ``arange(S)``, or with
+    ``mrope_sections`` the (B, S, 3) M-RoPE ids ``positions3``."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(params, x, n_heads, n_kv, head_dim)
-    pos = torch.arange(s, device=x.device)[None, :]
-    tables = rope_tables(pos, head_dim, rope_theta)     # shared by q and k
-    q, k = rotate(q, tables), rotate(k, tables)
+    if mrope_sections is not None:
+        tables = mrope_tables(positions3, head_dim, mrope_sections,
+                              rope_theta)
+    else:
+        pos = torch.arange(s, device=x.device)[None, :]
+        tables = rope_tables(pos, head_dim, rope_theta)
+    q, k = rotate(q, tables), rotate(k, tables)         # one table for both
     out = chunked_attention(q, k, v, causal=causal, window=window,
                             attn_softcap=attn_softcap, chunk=chunk,
                             scale=query_scale)
@@ -160,11 +170,12 @@ def gqa_forward(
     return proj, (k, v)
 
 
-def decode_rope_tables(b: int, step: int, head_dim: int, rope_theta: float,
+def decode_rope_tables(b: int, pos: int, head_dim: int, rope_theta: float,
                        device) -> tuple:
-    """RoPE ``(sin, cos)`` of the new token at absolute position ``step``,
-    for a batch of ``b``."""
-    pos = torch.full((b, 1), int(step), dtype=torch.int32, device=device)
+    """RoPE ``(sin, cos)`` of the new token at RoPE position ``pos`` (its
+    absolute position ``step`` unless the model says otherwise: the vlm's
+    text continues after the image's grid), for a batch of ``b``."""
+    pos = torch.full((b, 1), int(pos), dtype=torch.int32, device=device)
     return rope_tables(pos, head_dim, rope_theta)
 
 
@@ -199,9 +210,10 @@ def gqa_decode(
 
     Flat cache: slot = step; ring cache: slot = step % T (see
     ``decode_valid`` for the slots attended to).  ``tables`` and ``valid``
-    depend only on ``step`` and the cache's shape, so a decoder builds
-    them once a step (``decode_rope_tables``, ``decode_valid``) and passes
-    them to every layer; left ``None`` they are built here.
+    depend only on the step and the cache's shape, so a decoder builds
+    them once a step (``decode_rope_tables``, at the vlm's RoPE position
+    where that differs from ``step``; ``decode_valid``) and passes them to
+    every layer; left ``None`` they are built here, at ``step``.
     ``cache_k``/``cache_v`` are written IN PLACE at the slot (the
     reference returns updated copies); returns ``(out, cache_k, cache_v)``.
     """
@@ -225,7 +237,6 @@ def gqa_decode(
                            attn_softcap=attn_softcap, scale=query_scale)
     proj = out.reshape(b, 1, n_heads * head_dim) @ _w(params, "wo", x)
     return proj, cache_k, cache_v
-
 
 
 # --------------------------------------------------------------------------- #
@@ -337,3 +348,30 @@ def mla_decode(params, x, cache_ckv, cache_kpe, step: int, *, n_heads: int,
     ctx = torch.einsum("bhc,chv->bhv", ctx_lat.to(x.dtype), w_uv)
     proj = ctx.reshape(b, n_heads * v_dim) @ _w(params, "wo", x)
     return proj[:, None, :], cache_ckv, cache_kpe
+
+
+# --------------------------------------------------------------------------- #
+# cross-attention (enc-dec)
+# --------------------------------------------------------------------------- #
+
+def cross_attn_forward(params, x, enc_kv, *, n_heads: int, n_kv: int,
+                       head_dim: int, chunk: int = 1024):
+    """Decoder -> encoder attention: non-causal, no RoPE, over ``enc_kv`` =
+    (k, v) (B, Se, K, hd) from ``cross_kv``, in KV chunks of
+    ``min(chunk, Se)``; uses ``wq`` and ``wo`` of ``params``."""
+    b, s, _ = x.shape
+    k, v = enc_kv
+    q = (x @ _w(params, "wq", x)).reshape(b, s, n_heads, head_dim)
+    out = chunked_attention(q, k, v, causal=False,
+                            chunk=min(chunk, k.shape[1]))
+    return out.reshape(b, s, n_heads * head_dim) @ _w(params, "wo", x)
+
+
+def cross_kv(params, enc_out, *, n_kv: int, head_dim: int):
+    """The cross-attention's (k, v) (B, Se, K, hd) of the encoder output,
+    from ``wk`` and ``wv`` of ``params``: computed once a prompt, the
+    decode steps' ``ck``/``cv`` caches."""
+    b, s, _ = enc_out.shape
+    k = (enc_out @ _w(params, "wk", enc_out)).reshape(b, s, n_kv, head_dim)
+    v = (enc_out @ _w(params, "wv", enc_out)).reshape(b, s, n_kv, head_dim)
+    return k, v

@@ -39,7 +39,8 @@ from torch.utils.checkpoint import checkpoint
 __all__ = ["DTYPE", "PARAM_DTYPE", "dense_init", "embedding_init",
            "rmsnorm_init", "cast_params", "rmsnorm", "softcap", "mlp_init",
            "mlp_apply", "silu", "gelu", "rope_freqs", "rope_tables",
-           "rotate", "apply_rope", "embed", "unembed", "make_generator",
+           "mrope_tables", "rotate", "apply_rope", "apply_mrope", "embed",
+           "unembed", "make_generator",
            "softmax_cross_entropy", "chunked_softmax_cross_entropy"]
 
 DTYPE = torch.bfloat16       # activation/weight dtype on the wire
@@ -189,11 +190,36 @@ def _inv_freqs(head_dim: int, theta: float, device: str) -> torch.Tensor:
     return rope_freqs(head_dim, theta, device=device)
 
 
+@functools.lru_cache(maxsize=None)
+def _mrope_streams(sections: tuple, device: str) -> torch.Tensor:
+    """The stream (0 t, 1 h, 2 w) of each frequency band, built once per
+    (sections, device) for the same reason as ``_inv_freqs``."""
+    return torch.tensor([i for i, n in enumerate(sections) for _ in range(n)],
+                        device=device)
+
+
 def rope_tables(positions: torch.Tensor, head_dim: int,
                 theta: float = 10_000.0):
     """(sin, cos) of shape (..., S, 1, hd/2) for ``positions`` (..., S)."""
     inv = _inv_freqs(head_dim, float(theta), str(positions.device))  # (hd/2,)
     ang = positions[..., :, None].float() * inv                  # (..., S, hd/2)
+    return torch.sin(ang)[..., :, None, :], torch.cos(ang)[..., :, None, :]
+
+
+def mrope_tables(positions3: torch.Tensor, head_dim: int,
+                 sections, theta: float = 1_000_000.0):
+    """Qwen2-VL multimodal RoPE tables: (sin, cos) of shape (..., S, 1,
+    hd/2) for temporal/height/width ids ``positions3`` (..., S, 3).
+    ``sections`` splits the hd/2 frequency bands among the three streams
+    in order ((16, 24, 24) for hd 128): band ``j`` turns by the id of its
+    stream.  With the three ids equal these are ``rope_tables``'."""
+    half = head_dim // 2
+    if sum(sections) != half:
+        raise ValueError(f"M-RoPE sections {tuple(sections)} do not split "
+                         f"head_dim/2 = {half}")
+    inv = _inv_freqs(head_dim, float(theta), str(positions3.device))
+    stream = _mrope_streams(tuple(sections), str(positions3.device))
+    ang = positions3.float()[..., stream] * inv                  # (..., S, hd/2)
     return torch.sin(ang)[..., :, None, :], torch.cos(ang)[..., :, None, :]
 
 
@@ -209,6 +235,12 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float = 10_000.0):
     """x: (..., S, H, hd); positions: broadcastable to (..., S)."""
     return rotate(x, rope_tables(positions, x.shape[-1], theta))
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, sections,
+                theta: float = 1_000_000.0):
+    """x: (..., S, H, hd); positions3: (..., S, 3) (``mrope_tables``)."""
+    return rotate(x, mrope_tables(positions3, x.shape[-1], sections, theta))
 
 
 # --------------------------------------------------------------------------- #

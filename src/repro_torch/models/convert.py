@@ -5,7 +5,10 @@ The reference's parameter tree (nested dicts; ``jax.tree.map(np.asarray,
 params)`` on its side) stacks the layers on a leading ``L`` axis; the
 port holds one module per layer, named ``layers.<i>.<path>``.  The
 hybrid's shared blocks are a second stack, ``shared``, of its own length
-(``shared.<j>.<path>`` in the port).
+(``shared.<j>.<path>`` in the port); the enc-dec's two stacks are
+``enc_layers`` and ``dec_layers``.  An MoE layer's ``moe`` leaves keep
+their expert axis after the layer axis: ``(L, E, D, F)`` in the
+reference, ``(E, D, F)`` a layer in the port.
 The ``(in, out)`` layout is kept as it is: the math is ``x @ W`` in both.
 
 - ``load_reference_params`` / ``load_reference_opt`` copy a reference tree
@@ -31,7 +34,7 @@ __all__ = ["Stacked", "STACKS", "reference_tree", "load_reference_params",
            "load_reference_opt"]
 
 # the top-level entries of the reference's tree that stack layers
-STACKS = ("layers", "shared")
+STACKS = ("layers", "shared", "enc_layers", "dec_layers")
 
 
 class Stacked(tuple):

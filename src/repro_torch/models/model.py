@@ -1,15 +1,18 @@
 """The model facade: one ``nn.Module`` per architecture config exposing
 
-    init / forward / loss / prefill / decode_step / init_cache / param_count
+    init / forward / loss / prefill / decode_step / init_cache /
+    param_count / active_param_count
 
 so the trainer, the server, the launchers and the tests never dispatch
-on family themselves.  The port of ``repro.models.model`` for the dense
-(GQA or MLA), ssm and hybrid families; the parameters live in the module
-(the reference passes a params tree).
+on family themselves.  The port of ``repro.models.model`` for every
+family of the registry: dense (GQA or MLA), MoE, vlm (M-RoPE over stub
+patch embeddings), ssm, hybrid and enc-dec; the parameters live in the
+module (the reference passes a params tree).
 
-``build_model`` refuses a family or feature this port does not have yet
-(moe, encdec, vlm, M-RoPE), naming the ROADMAP item; it never falls back
-to another family.
+The vlm reads ``batch["patches"]`` (B, n_patches, D) beside its text
+``tokens``, the enc-dec ``batch["frames"]`` (B, Se, D): the serve loop
+passes neither, so these two families run through ``prefill`` /
+``decode_step`` (``runtime.steps``), as in the reference.
 
 A model that trains keeps its float32 masters (never ``cast_params`` it):
 the forward casts each weight on use, so the gradients reach the masters
@@ -17,30 +20,20 @@ in float32, as ``jax.grad`` gives them.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional
 
 import torch
 from torch import nn
 
 from ..configs.base import ModelConfig
+from . import common
+from . import encdec as ed
 from . import transformer as tf
-from .common import (chunked_softmax_cross_entropy, embedding_init,
+from .common import (chunked_softmax_cross_entropy, embed, embedding_init,
                      rmsnorm_init)
 
 __all__ = ["Model", "build_model"]
-
-_NOT_PORTED = "not ported yet (ROADMAP queue 1, item 3(b))"
-_PORTED = ("dense", "ssm", "hybrid")
-
-
-def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in _PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is {_NOT_PORTED}")
-    if cfg.n_experts:
-        raise NotImplementedError(f"{cfg.name}: MoE layers are {_NOT_PORTED}")
-    if cfg.mrope_sections is not None:
-        raise NotImplementedError(f"{cfg.name}: M-RoPE is {_NOT_PORTED}")
 
 
 def _resolve_device(device) -> torch.device:
@@ -53,30 +46,56 @@ def _resolve_device(device) -> torch.device:
     return dev
 
 
+def _vlm_positions3(batch: int, n_patches: int, seq_total: int, grid: int,
+                    device=None) -> torch.Tensor:
+    """M-RoPE ids (B, S, 3) int32: the image patches take (t=0, h, w) on
+    a ``grid`` x ``grid`` raster; the text continues temporally after the
+    image's spatial extent, at ``grid + i`` on all three streams."""
+    p = torch.arange(n_patches, dtype=torch.int32, device=device)
+    img = torch.stack([torch.zeros_like(p), p // grid, p % grid], dim=-1)
+    txt = grid + torch.arange(seq_total - n_patches, dtype=torch.int32,
+                              device=device)
+    pos = torch.cat([img, txt[:, None].expand(-1, 3)], dim=0)
+    return pos[None].expand(batch, seq_total, 3)
+
+
 class Model(nn.Module):
-    """A decoder: ``embed``, ``layers`` (``DecoderLayer`` each; for the ssm
-    and hybrid families ``MambaLayer``), for the hybrid family ``shared``
+    """A decoder: ``embed``, ``layers`` (``DecoderLayer`` each, with an
+    MoE block in place of the MLP for the moe family; for the ssm and
+    hybrid families ``MambaLayer``), for the hybrid family ``shared``
     (``n_shared_attn`` ``DecoderLayer``s), ``final_norm`` and, untied,
-    ``unembed`` (the hybrid always unembeds with ``embed``).  Construction
-    allocates the float32 parameters uninitialised (nothing on ``meta``);
-    ``init`` fills them."""
+    ``unembed`` (the hybrid always unembeds with ``embed``).  The enc-dec
+    holds ``enc_layers`` (``EncoderLayer``), ``dec_layers``
+    (``CrossDecoderLayer``), ``enc_norm`` and ``final_norm`` beside
+    ``embed``, and unembeds with ``embed``.  Construction allocates the
+    float32 parameters uninitialised (nothing on ``meta``); ``init``
+    fills them."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
-        _check_ported(cfg)
         super().__init__()
         dev = _resolve_device(device)
         self.cfg = cfg
         self.embed = nn.Parameter(embedding_init(
             None, cfg.padded_vocab, cfg.d_model, device=dev))
-        layer = (tf.MambaLayer if cfg.family in ("ssm", "hybrid")
-                 else tf.DecoderLayer)
-        self.layers = nn.ModuleList(layer(cfg, device=dev)
-                                    for _ in range(cfg.n_layers))
+        if cfg.family == "encdec":
+            self.enc_layers = nn.ModuleList(
+                ed.EncoderLayer(cfg, device=dev)
+                for _ in range(cfg.enc_layers))
+            self.dec_layers = nn.ModuleList(
+                ed.CrossDecoderLayer(cfg, device=dev)
+                for _ in range(cfg.n_layers))
+            self.enc_norm = nn.Parameter(rmsnorm_init(cfg.d_model,
+                                                      device=dev))
+        else:
+            layer = (tf.MambaLayer if cfg.family in ("ssm", "hybrid")
+                     else tf.DecoderLayer)
+            self.layers = nn.ModuleList(layer(cfg, device=dev)
+                                        for _ in range(cfg.n_layers))
         if cfg.family == "hybrid":
             self.shared = nn.ModuleList(tf.DecoderLayer(cfg, device=dev)
                                         for _ in range(cfg.n_shared_attn))
         self.final_norm = nn.Parameter(rmsnorm_init(cfg.d_model, device=dev))
-        if not cfg.tie_embeddings and cfg.family != "hybrid":
+        if not cfg.tie_embeddings and cfg.family not in ("hybrid", "encdec"):
             self.unembed = nn.Parameter(embedding_init(
                 None, cfg.padded_vocab, cfg.d_model, device=dev))
 
@@ -88,30 +107,49 @@ class Model(nn.Module):
     def init(self, generator: torch.Generator) -> "Model":
         """Fill every parameter from ``generator`` (on the model's device,
         ``common.make_generator``); returns self."""
-        if self.cfg.family == "hybrid":
-            tf.hybrid_init(self, generator)
-        else:
-            tf.decoder_init(self, generator)
+        init = {"encdec": ed.encdec_init,
+                "hybrid": tf.hybrid_init}.get(self.cfg.family, tf.decoder_init)
+        init(self, generator)
         return self
 
     # --------------------------- forward -------------------------------- #
+    def _vlm_inputs(self, batch) -> Dict[str, torch.Tensor]:
+        """The vlm's decoder inputs: ``x_embed``, the patches and the
+        embedded text (activation dtype), and their M-RoPE ids."""
+        cfg = self.cfg
+        x = torch.cat([batch["patches"].to(common.DTYPE),
+                       embed(self.embed, batch["tokens"])], dim=1)
+        pos3 = _vlm_positions3(x.shape[0], cfg.n_patches, x.shape[1],
+                               math.isqrt(cfg.n_patches), device=x.device)
+        return {"x_embed": x, "positions3": pos3}
+
     def forward(self, batch: Dict[str, torch.Tensor], *,
                 chunk: Optional[int] = None,
                 logits_slice: Optional[str] = None):
-        """Full-sequence forward over ``batch["tokens"]`` (B, S); returns
-        (logits, aux_loss)."""
-        fwd = (tf.hybrid_forward if self.cfg.family == "hybrid"
-               else tf.decoder_forward)
-        return fwd(self, self.cfg, batch["tokens"],
-                   chunk=chunk or self.cfg.attn_chunk,
-                   logits_slice=logits_slice)
+        """Full-sequence forward; returns (logits, aux_loss).  Reads
+        ``batch["tokens"]`` (B, S), with the vlm's ``patches`` or the
+        enc-dec's ``frames``; the vlm's logits cover the patches too."""
+        cfg = self.cfg
+        kw = dict(chunk=chunk or cfg.attn_chunk, logits_slice=logits_slice)
+        if cfg.family == "encdec":
+            return ed.encdec_forward(self, cfg, batch["frames"],
+                                     batch["tokens"], **kw)
+        if cfg.family == "hybrid":
+            return tf.hybrid_forward(self, cfg, batch["tokens"], **kw)
+        if cfg.family == "vlm":
+            return tf.decoder_forward(self, cfg, **self._vlm_inputs(batch),
+                                      **kw)
+        return tf.decoder_forward(self, cfg, batch["tokens"], **kw)
 
     def loss(self, batch: Dict[str, torch.Tensor], *,
              chunk: Optional[int] = None) -> torch.Tensor:
         """Token-mean CE of ``batch["labels"]`` (B, S) through the chunked
-        unembed, plus 0.01 x the auxiliary loss; a 0-d float32 tensor."""
+        unembed (the vlm's text positions only), plus 0.01 x the
+        auxiliary loss; a 0-d float32 tensor."""
         cfg = self.cfg
         hidden, aux = self.forward(batch, chunk=chunk, logits_slice="hidden")
+        if cfg.family == "vlm":
+            hidden = hidden[:, cfg.n_patches:, :]
         ce = chunked_softmax_cross_entropy(hidden, tf._unembed_w(self),
                                            batch["labels"],
                                            cap=cfg.final_softcap)
@@ -122,30 +160,61 @@ class Model(nn.Module):
     def prefill(self, batch: Dict[str, torch.Tensor], cache_len: int, *,
                 chunk: Optional[int] = None):
         """Prompt pass: (last-token logits (B, 1, V) float32, cache)."""
-        chunk = chunk or self.cfg.attn_chunk
-        if self.cfg.family == "hybrid":
-            return tf.hybrid_prefill(self, self.cfg, batch["tokens"],
-                                     cache_len, chunk=chunk)
-        return tf.decoder_prefill(self, self.cfg, batch["tokens"],
+        cfg = self.cfg
+        chunk = chunk or cfg.attn_chunk
+        if cfg.family == "encdec":
+            return ed.encdec_prefill(self, cfg, batch["frames"],
+                                     batch["tokens"], cache_len, chunk=chunk)
+        if cfg.family == "hybrid":
+            return tf.hybrid_prefill(self, cfg, batch["tokens"], cache_len,
+                                     chunk=chunk)
+        if cfg.family == "vlm":
+            return tf.decoder_prefill(self, cfg, cache_len=cache_len,
+                                      chunk=chunk, **self._vlm_inputs(batch))
+        return tf.decoder_prefill(self, cfg, batch["tokens"],
                                   cache_len=cache_len, chunk=chunk)
 
     @torch.no_grad()
     def decode_step(self, cache, tokens: torch.Tensor, step: int):
         """One token (B, 1) at absolute position ``step``: (logits, cache);
-        the cache is updated in place."""
-        step_fn = (tf.hybrid_decode_step if self.cfg.family == "hybrid"
-                   else tf.decoder_decode_step)
-        return step_fn(self, self.cfg, cache, tokens, step)
+        the cache is updated in place.  The vlm's text token is rotated
+        to ``step - n_patches + grid``, where its prefill put the text."""
+        cfg = self.cfg
+        if cfg.family == "encdec":
+            return ed.encdec_decode_step(self, cfg, cache, tokens, step)
+        if cfg.family == "hybrid":
+            return tf.hybrid_decode_step(self, cfg, cache, tokens, step)
+        rope_pos = None
+        if cfg.family == "vlm":
+            rope_pos = int(step) - cfg.n_patches + math.isqrt(cfg.n_patches)
+        return tf.decoder_decode_step(self, cfg, cache, tokens, step,
+                                      rope_pos=rope_pos)
 
-    def init_cache(self, batch: int, cache_len: int) -> Dict[str, torch.Tensor]:
+    def init_cache(self, batch: int, cache_len: int, *,
+                   enc_len: Optional[int] = None) -> Dict[str, torch.Tensor]:
+        """Zeroed decode caches; the enc-dec's cross caches hold
+        ``enc_len`` (default ``cache_len``) encoder positions."""
+        if self.cfg.family == "encdec":
+            return ed.init_cache(self.cfg, batch, cache_len,
+                                 enc_len or cache_len, device=self.device)
         return tf.init_cache(self.cfg, batch, cache_len, device=self.device)
 
     # --------------------------- accounting ----------------------------- #
     def param_count(self) -> int:
         return int(sum(p.numel() for p in self.parameters()))
 
+    def active_param_count(self) -> int:
+        """MoE: the parameters a token touches (``top_k`` of the
+        ``n_experts`` experts of each layer); else ``param_count``."""
+        cfg = self.cfg
+        total = self.param_count()
+        if not cfg.n_experts:
+            return total
+        expert_p = 3 * cfg.d_model * cfg.d_ff      # w_in, w_gate, w_out
+        return total - cfg.n_layers * (cfg.n_experts - cfg.top_k) * expert_p
+
 
 def build_model(cfg: ModelConfig, device="cuda") -> Model:
     """The model for ``cfg`` on ``device`` (``"meta"`` counts without
-    allocating); raises for a family or feature not ported yet."""
+    allocating)."""
     return Model(cfg, device=device)

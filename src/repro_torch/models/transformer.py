@@ -1,12 +1,13 @@
-"""Decoder stacks (dense, MLA, ssm, hybrid): per-layer modules,
-full-sequence forward, decode caches, prefill and one-token decode.
+"""Decoder stacks (dense, MoE, vlm, MLA, ssm, hybrid): per-layer
+modules, full-sequence forward, decode caches, prefill and one-token
+decode.
 
-The port of the dense, MLA, ssm and hybrid branches of
-``repro.models.transformer``.  Where the reference stacks its layers on a
-leading ``L`` axis and drives them with ``lax.scan``, the port holds an
-``nn.ModuleList`` of layers (``DecoderLayer`` for attention blocks,
-``MambaLayer`` for Mamba2 blocks) and loops; per-layer heterogeneity
-(gemma2's local/global alternation) is the same per-layer window limit.
+The port of ``repro.models.transformer``.  Where the reference stacks
+its layers on a leading ``L`` axis and drives them with ``lax.scan``,
+the port holds an ``nn.ModuleList`` of layers (``DecoderLayer`` for
+attention blocks, ``MambaLayer`` for Mamba2 blocks) and loops; per-layer
+heterogeneity (gemma2's local/global alternation) is the same per-layer
+window limit.
 Caches keep the reference's layout, one tensor per entry with the layers
 stacked on axis 0; prefill fills them and decode writes each layer's
 slot, conv tails and SSM state in place.
@@ -14,8 +15,12 @@ slot, conv tails and SSM state in place.
 The hybrid (zamba2) stacks its Mamba2 layers in segments of
 ``attn_every``, each followed by one of ``n_shared_attn`` shared
 attention blocks, cycled; the shared blocks are a second stack,
-``shared``.  The MoE, enc-dec and vlm branches wait for later slices
-(ROADMAP queue 1); ``models.model.build_model`` refuses those configs.
+``shared``.  An MoE layer holds ``moe`` (``models.moe``) in place of
+``mlp``; its aux loss is summed over the layers by the forward and
+dropped by decode, as in the reference.  The vlm feeds pre-embedded
+inputs (``x_embed``) rotated by M-RoPE ids (``positions3``) and decodes
+at a RoPE position of its own (``rope_pos``).  The enc-dec stacks live
+in ``models.encdec``.
 """
 from __future__ import annotations
 
@@ -34,6 +39,7 @@ from .attention import (decode_rope_tables, decode_valid, gqa_decode,
                         mla_init)
 from .common import (embed, embedding_init, gelu, mlp_apply, mlp_init,
                      rmsnorm, rmsnorm_init, silu, unembed)
+from .moe import moe_apply, moe_init
 from .ssm import CONV_K, mamba2_decode, mamba2_forward, mamba2_init
 
 __all__ = ["BIG_WINDOW", "DecoderLayer", "MambaLayer", "decoder_init",
@@ -52,8 +58,9 @@ def _attn_layer_init(generator, cfg: ModelConfig, *, device=None):
     """One attention layer's parameter tree, the reference's names:
     ``ln1``, ``attn`` (GQA ``wq wk wv wo``, or MLA ``w_dq w_uq w_dkv
     w_kpe w_uk w_uv wo``), ``ln2``, ``mlp`` (``w_in w_gate w_out``) and,
-    with sandwich norms, ``ln1_post``/``ln2_post``.  ``generator=None``
-    only allocates."""
+    with sandwich norms, ``ln1_post``/``ln2_post``; an MoE layer holds
+    ``moe`` (``router w_in w_gate w_out``) in place of ``mlp``.
+    ``generator=None`` only allocates."""
     if cfg.mla:
         attn = mla_init(generator, cfg.d_model, cfg.n_heads, q_lora=cfg.q_lora,
                         kv_lora=cfg.kv_lora, nope_dim=cfg.nope_dim,
@@ -63,9 +70,13 @@ def _attn_layer_init(generator, cfg: ModelConfig, *, device=None):
                         cfg.hd, device=device)
     params = {"ln1": rmsnorm_init(cfg.d_model, device=device),
               "attn": attn,
-              "ln2": rmsnorm_init(cfg.d_model, device=device),
-              "mlp": mlp_init(generator, cfg.d_model, cfg.d_ff, gated=True,
-                              device=device)}
+              "ln2": rmsnorm_init(cfg.d_model, device=device)}
+    if cfg.n_experts:
+        params["moe"] = moe_init(generator, cfg.d_model, cfg.d_ff,
+                                 cfg.n_experts, device=device)
+    else:
+        params["mlp"] = mlp_init(generator, cfg.d_model, cfg.d_ff,
+                                 gated=True, device=device)
     if cfg.sandwich_norm:
         params["ln1_post"] = rmsnorm_init(cfg.d_model, device=device)
         params["ln2_post"] = rmsnorm_init(cfg.d_model, device=device)
@@ -103,7 +114,7 @@ class _Layer(nn.Module):
 
 
 class DecoderLayer(_Layer):
-    """One attention (GQA or MLA) + MLP block."""
+    """One attention (GQA or MLA) + MLP (or MoE) block."""
 
     param_tree = staticmethod(_attn_layer_init)
 
@@ -155,8 +166,19 @@ def _act(cfg: ModelConfig):
     return gelu if cfg.sandwich_norm else silu
 
 
+def _ffn(p, cfg: ModelConfig, h):
+    """The block's feed-forward half on the normed stream: (out, aux),
+    aux the MoE's load-balancing loss (None for an MLP)."""
+    if cfg.n_experts:
+        return moe_apply(p["moe"], h, n_experts=cfg.n_experts,
+                         top_k=cfg.top_k,
+                         capacity_factor=cfg.capacity_factor)
+    return mlp_apply(p["mlp"], h, act=_act(cfg)), None
+
+
 def _attn_layer_fwd(p, cfg: ModelConfig, x, window_limit, *,
-                    causal=True, chunk=1024, collect_kv=False):
+                    positions3=None, causal=True, chunk=1024,
+                    collect_kv=False):
     h = rmsnorm(x, p["ln1"], cfg.rms_eps)
     if cfg.mla:
         attn_out, kv = mla_forward(
@@ -167,16 +189,18 @@ def _attn_layer_fwd(p, cfg: ModelConfig, x, window_limit, *,
     else:
         attn_out, kv = gqa_forward(
             p["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-            head_dim=cfg.hd, rope_theta=cfg.rope_theta, causal=causal,
-            window=window_limit, attn_softcap=cfg.attn_softcap,
-            query_scale=cfg.query_scale, chunk=chunk)
+            head_dim=cfg.hd, rope_theta=cfg.rope_theta,
+            mrope_sections=cfg.mrope_sections, positions3=positions3,
+            causal=causal, window=window_limit,
+            attn_softcap=cfg.attn_softcap, query_scale=cfg.query_scale,
+            chunk=chunk)
     if cfg.sandwich_norm:
         attn_out = rmsnorm(attn_out, p["ln1_post"], cfg.rms_eps)
     x = x + attn_out
 
-    h = rmsnorm(x, p["ln2"], cfg.rms_eps)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    ff = mlp_apply(p["mlp"], h, act=_act(cfg))
+    ff, aux = _ffn(p, cfg, rmsnorm(x, p["ln2"], cfg.rms_eps))
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.sandwich_norm:
         ff = rmsnorm(ff, p["ln2_post"], cfg.rms_eps)
     x = x + ff
@@ -237,17 +261,29 @@ def _unembed_w(model):
     return getattr(model, "unembed", model.embed)
 
 
-def decoder_forward(model, cfg: ModelConfig, tokens, *, chunk=1024,
+def _embed_or(model, cfg: ModelConfig, tokens, x_embed):
+    """The input stream: ``x_embed`` as given (the vlm's patches and text),
+    else the tokens embedded."""
+    if x_embed is not None:
+        return x_embed
+    return embed(model.embed, tokens, scale_by_dim=cfg.sandwich_norm)
+
+
+def decoder_forward(model, cfg: ModelConfig, tokens=None, *, x_embed=None,
+                    positions3=None, chunk=1024,
                     logits_slice: Optional[str] = None):
-    """Full-sequence forward.
+    """Full-sequence forward over ``tokens`` or the pre-embedded
+    ``x_embed`` (rotated by the M-RoPE ids ``positions3`` where the
+    config has ``mrope_sections``).
 
     logits_slice: None -> full logits; "last" -> last position only;
-    "hidden" -> the final-normed hidden states.  Returns (logits, aux).
+    "hidden" -> the final-normed hidden states.  Returns (logits, aux),
+    aux the MoE layers' summed load-balancing loss.
     With ``cfg.remat == "full"`` and autograd recording, each layer runs
     under ``torch.utils.checkpoint``.  The ssm family's SSD runs in
     chunks of ``cfg.ssd_chunk``.
     """
-    x = embed(model.embed, tokens, scale_by_dim=cfg.sandwich_norm)
+    x = _embed_or(model, cfg, tokens, x_embed)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "ssm":
         layer = _remat(_mamba_layer_fwd, cfg)
@@ -257,7 +293,8 @@ def decoder_forward(model, cfg: ModelConfig, tokens, *, chunk=1024,
         layer = _remat(_attn_layer_fwd, cfg)
         for p_l, limit in zip(model.layers,
                               _window_limits(cfg, cfg.n_layers)):
-            x, aux_l = layer(p_l, cfg, x, limit, chunk=chunk)
+            x, aux_l = layer(p_l, cfg, x, limit, positions3=positions3,
+                             chunk=chunk)
             aux = aux + aux_l
     x = rmsnorm(x, model.final_norm, cfg.rms_eps)
     if logits_slice == "hidden":
@@ -321,8 +358,7 @@ def _finish_block(p_l, cfg: ModelConfig, h, attn_out):
     if cfg.sandwich_norm:
         attn_out = rmsnorm(attn_out, p_l["ln1_post"], cfg.rms_eps)
     h = h + attn_out
-    hn = rmsnorm(h, p_l["ln2"], cfg.rms_eps)
-    ff = mlp_apply(p_l["mlp"], hn, act=_act(cfg))
+    ff, _ = _ffn(p_l, cfg, rmsnorm(h, p_l["ln2"], cfg.rms_eps))
     if cfg.sandwich_norm:
         ff = rmsnorm(ff, p_l["ln2_post"], cfg.rms_eps)
     return h + ff
@@ -367,10 +403,11 @@ def _mamba_prefill(p_l, cfg: ModelConfig, x, cache, i: int):
     return x + out
 
 
-def decoder_prefill(model, cfg: ModelConfig, tokens, *, cache_len: int,
-                    chunk=1024):
-    """Prompt pass: returns (last-token logits, decode cache)."""
-    x = embed(model.embed, tokens, scale_by_dim=cfg.sandwich_norm)
+def decoder_prefill(model, cfg: ModelConfig, tokens=None, *, x_embed=None,
+                    cache_len: int, positions3=None, chunk=1024):
+    """Prompt pass over ``tokens`` or ``x_embed`` (see
+    ``decoder_forward``): returns (last-token logits, decode cache)."""
+    x = _embed_or(model, cfg, tokens, x_embed)
     if cfg.family == "ssm":
         cache = init_cache(cfg, x.shape[0], cache_len, device=x.device)
         for i, p_l in enumerate(model.layers):
@@ -379,7 +416,8 @@ def decoder_prefill(model, cfg: ModelConfig, tokens, *, cache_len: int,
         return unembed(_unembed_w(model), x, cap=cfg.final_softcap), cache
     ks, vs = [], []
     for p_l, limit in zip(model.layers, _window_limits(cfg, cfg.n_layers)):
-        x, _, (k, v) = _attn_layer_fwd(p_l, cfg, x, limit, chunk=chunk,
+        x, _, (k, v) = _attn_layer_fwd(p_l, cfg, x, limit,
+                                       positions3=positions3, chunk=chunk,
                                        collect_kv=True)
         ks.append(k)
         vs.append(v)
@@ -406,11 +444,14 @@ def decoder_prefill(model, cfg: ModelConfig, tokens, *, cache_len: int,
 # decode step (one token)
 # --------------------------------------------------------------------------- #
 
-def decoder_decode_step(model, cfg: ModelConfig, cache, tokens, step):
+def decoder_decode_step(model, cfg: ModelConfig, cache, tokens, step,
+                        rope_pos: Optional[int] = None):
     """One-token decode: returns (logits (B, 1, V), cache).  ``cache`` is
     updated in place (each layer writes its slot, or its conv tails and
     SSD state) and returned.  The RoPE tables and each kind of layer's
-    slot mask are built once a step and shared by the layers."""
+    slot mask are built once a step and shared by the layers; a GQA
+    stack rotates the token to ``rope_pos`` where that is given (the
+    vlm), else to ``step``."""
     x = embed(model.embed, tokens, scale_by_dim=cfg.sandwich_norm)
     step, b, dev = int(step), x.shape[0], x.device
     if cfg.family == "ssm":
@@ -430,7 +471,8 @@ def decoder_decode_step(model, cfg: ModelConfig, cache, tokens, step):
                                      cache["kpe"][i], step, **kw)
             x = _finish_block(p_l, cfg, x, a_out)
     else:
-        x = _gqa_decode_layers(model, cfg, cache, x, step)
+        x = _gqa_decode_layers(model, cfg, cache, x, step,
+                               step if rope_pos is None else int(rope_pos))
     x = rmsnorm(x, model.final_norm, cfg.rms_eps)
     return unembed(_unembed_w(model), x, cap=cfg.final_softcap), cache
 
@@ -444,14 +486,17 @@ def _mamba_decode(p_l, cfg: ModelConfig, x, cache, i: int):
     return x + out
 
 
-def _gqa_decode_layers(model, cfg: ModelConfig, cache, x, step: int):
-    """The GQA decoder's layers for one token (see ``decoder_decode_step``);
-    returns the residual stream."""
+def _gqa_decode_layers(model, cfg: ModelConfig, cache, x, step: int,
+                      rope_pos: int):
+    """The GQA decoder's layers for one token at ``step``, rotated to
+    ``rope_pos`` (see ``decoder_decode_step``); returns the residual
+    stream."""
     b, dev = x.shape[0], x.device
     kw = dict(n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
               rope_theta=cfg.rope_theta, attn_softcap=cfg.attn_softcap,
               query_scale=cfg.query_scale,
-              tables=decode_rope_tables(b, step, cfg.hd, cfg.rope_theta, dev))
+              tables=decode_rope_tables(b, rope_pos, cfg.hd, cfg.rope_theta,
+                                        dev))
     if cfg.paired_local_global:
         # (local, global) layer pairs: the local layer's cache is a ring of
         # `window` slots, the global layer's is full length

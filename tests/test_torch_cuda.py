@@ -839,6 +839,65 @@ def test_new_family_forward_prefill_and_decode_on_cuda_match_the_cpu(
                                rtol=0.05, atol=0.08, err_msg=arch)
 
 
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "phi3.5-moe-42b-a6.6b",
+                                  "qwen2-vl-2b", "seamless-m4t-large-v2"])
+def test_moe_vlm_encdec_prefill_and_decode_on_cuda_match_the_cpu(
+        cuda, monkeypatch, arch):
+    """Each of the MoE, vlm and enc-dec families, tiny (2 layers; the
+    enc-dec 2 + 2), with the same weights on the card and on the CPU at
+    float32 activations: the forward, a prefill (with the vlm's patches
+    or the enc-dec's frames) and 8 decode steps agree within rtol 1e-4 /
+    atol 1e-4, and every MoE routing choice is the same on both (float32
+    router logits: no top-2 near-tie at these sizes)."""
+    from conftest import tiny_config
+    import repro_torch.models.common as p_common
+    import repro_torch.models.moe as p_moe
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.common import make_generator
+    monkeypatch.setattr(p_common, "DTYPE", torch.float32)
+    cfg = tiny_config(get_config(arch))
+    cpu = build_model(cfg, device="cpu").init(make_generator(0))
+    gpu = build_model(cfg, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(25)
+    toks = rng.integers(0, 200, (2, 20))
+    stub = rng.normal(0, 1, (2, 16 if cfg.family == "encdec" else
+                             cfg.n_patches, cfg.d_model)).astype(np.float32)
+    s = 1 if cfg.family == "encdec" else 12
+    first = s + cfg.n_patches
+    routes, route = [], p_moe.route
+
+    def recording(router, x, top_k):
+        out = route(router, x, top_k)
+        routes.append(out[2].cpu())
+        return out
+    monkeypatch.setattr(p_moe, "route", recording)
+    outs, chosen = [], []
+    for m in (cpu, gpu):
+        routes.clear()
+        t = torch.as_tensor(toks, device=m.device)
+        batch = {"tokens": t[:, :s]}
+        if cfg.family != "dense" and cfg.family != "moe":
+            key = "frames" if cfg.family == "encdec" else "patches"
+            batch[key] = torch.as_tensor(stub, device=m.device)
+        with torch.no_grad():
+            full, _ = m.forward(dict(batch, tokens=t[:, :s + 8]))
+        logits, cache = m.prefill(batch, 32)
+        seq = [full.cpu(), logits.cpu()]
+        for i in range(8):
+            logits, cache = m.decode_step(cache, t[:, s + i:s + i + 1],
+                                          first + i)
+            seq.append(logits.cpu())
+        outs.append(torch.cat(seq, 1))
+        chosen.append([r.clone() for r in routes])
+    np.testing.assert_allclose(outs[1].numpy(), outs[0].numpy(),
+                               rtol=1e-4, atol=1e-4, err_msg=arch)
+    assert len(chosen[0]) == len(chosen[1])
+    assert all(torch.equal(a, b) for a, b in zip(*chosen))
+    assert bool(chosen[0]) == bool(cfg.n_experts)
+
+
 def _train_twin(cfg, batch, dev, seed=0):
     """One ``make_train_step`` step of ``cfg`` on ``dev`` from the seeded
     CPU weights: (metrics as floats, the updated parameters on the CPU)."""

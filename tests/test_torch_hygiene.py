@@ -34,8 +34,8 @@ def test_every_module_imports_without_jax_or_repro():
               "replication.transport", "replication.ship",
               "replication.replica", "replication.failover",
               "core.baselines", "configs", "models.common",
-              "models.attention", "models.ssm", "models.transformer",
-              "models.model",
+              "models.attention", "models.ssm", "models.moe",
+              "models.encdec", "models.transformer", "models.model",
               "models.convert", "runtime.router", "runtime.serve_loop",
               "launch.serve", "optim", "optim.adamw", "runtime.steps",
               "runtime.checkpoint", "runtime.train_loop", "data.pipeline",
@@ -135,7 +135,7 @@ def test_chip_smoke_rehearsal_and_no_card_exit():
     assert "[main]" in reh.stdout and "[segments]" in reh.stdout
     assert "[ops]" in reh.stdout and "[background]" in reh.stdout
     for phase in ("[cache]", "[sharded]", "[durable]", "[replicated]",
-                  "[lm_serve]", "[lm_train]"):
+                  "[lm_serve]", "[lm_steps]", "[lm_train]"):
         assert phase in reh.stdout, phase
     assert "pinned epoch" in reh.stdout
     assert '"ok"' not in reh.stdout
@@ -243,6 +243,27 @@ def test_lm_serving_raises_without_a_card():
         Server(model, ServeConfig())
     assert CoaxRouter(backend="numpy").backend == "numpy"
     assert CoaxRouter(device="cpu").device == "cpu"
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "phi3.5-moe-42b-a6.6b",
+                                  "qwen2-vl-2b", "seamless-m4t-large-v2"])
+def test_new_families_raise_without_a_card(arch):
+    """The MoE, vlm and enc-dec families keep the no-fallback rule: on
+    ``cuda`` (the default) with no card ``build_model`` raises, at full
+    size and tiny, before it allocates; ``meta`` and ``cpu`` build."""
+    _no_card()
+    from conftest import tiny_config
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config(arch)
+    tiny = tiny_config(cfg)
+    for c in (cfg, tiny):
+        with pytest.raises(RuntimeError, match="no card"):
+            build_model(c)
+        with pytest.raises(RuntimeError, match="no card"):
+            build_model(c, device="cuda")
+    assert build_model(cfg, device="meta").param_count() > 1e9
+    assert build_model(tiny, device="cpu").device.type == "cpu"
 
 
 def test_lm_training_raises_without_a_card(tmp_path):

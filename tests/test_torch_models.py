@@ -39,7 +39,7 @@ from repro.models import build_model as r_build
 import repro_torch.configs as p_configs
 import repro_torch.models.attention as p_attn
 import repro_torch.models.common as p_common
-from repro_torch.models import Model, build_model
+from repro_torch.models import build_model
 from repro_torch.models.convert import load_reference_params
 
 F32 = dict(rtol=1e-5, atol=1e-5)
@@ -392,10 +392,15 @@ def test_convert_refuses_a_tree_that_does_not_fit():
 
 
 # --------------------------------------------------------------------------- #
-# full-size accounting and what is not ported
+# full-size accounting
 # --------------------------------------------------------------------------- #
 
-@pytest.mark.parametrize("arch", DENSE + NEW)
+# the MoE, vlm (M-RoPE) and enc-dec archs
+MOE_VLM_ENCDEC = ["mixtral-8x7b", "phi3.5-moe-42b-a6.6b", "qwen2-vl-2b",
+         "seamless-m4t-large-v2"]
+
+
+@pytest.mark.parametrize("arch", DENSE + NEW + MOE_VLM_ENCDEC)
 def test_param_count_at_full_size_on_meta(arch):
     model = build_model(p_configs.get_config(arch), device="meta")
     assert all(p.is_meta for p in model.parameters())
@@ -405,14 +410,3 @@ def test_param_count_at_full_size_on_meta(arch):
         assert len(model.layers) == 24
     if arch == "zamba2-2.7b":
         assert len(model.layers) == 54 and len(model.shared) == 2
-
-
-@pytest.mark.parametrize("arch", ["qwen2-vl-2b", "mixtral-8x7b",
-                                  "phi3.5-moe-42b-a6.6b",
-                                  "seamless-m4t-large-v2"])
-def test_build_model_refuses_what_is_not_ported(arch):
-    cfg = p_configs.get_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(cfg, device="meta")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(tiny_config(cfg), device="cpu")

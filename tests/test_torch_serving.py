@@ -282,6 +282,41 @@ def test_server_twin_new_families_at_float32(f32, arch):
     _server_twin(arch, dict(rtol=1e-4 if ssm else 1e-5, atol=1e-5))
 
 
+def test_server_twin_moe_at_float32(f32):
+    """The same twin for mixtral, served as any decoder is (tiny, phi3.5
+    differs from it only by its window): every wave's rids, every step's
+    logits at 1e-5 (prefill and decode route each wave's tokens, left
+    pads included, through the experts) and the greedy tokens up to
+    near-ties."""
+    _server_twin("mixtral-8x7b", dict(rtol=1e-5, atol=1e-5))
+
+
+@pytest.mark.parametrize("arch,key", [("qwen2-vl-2b", "patches"),
+                                      ("seamless-m4t-large-v2", "frames")])
+def test_server_fails_on_the_vlm_and_encdec_as_the_reference(arch, key):
+    """The serve loop passes prefill ``{"tokens": ...}`` alone, so the vlm
+    (which reads ``patches``) and the enc-dec (``frames``) fail at their
+    first wave, with the same ``KeyError`` in both packages; these
+    families run through ``prefill``/``decode_step`` instead
+    (``test_torch_vlm.py``, ``test_torch_encdec.py``)."""
+    cfg = tiny_config(get_config(arch))
+    ref_model = r_build(cfg)
+    params, _ = ref_model.init(jax.random.key(0))
+    port_model = build_model(cfg, device="cpu")
+    load_reference_params(port_model, jax.tree.map(np.asarray, params))
+    scfg = dict(batch_size=2, max_new_tokens=4, cache_len=32, eos_token=0)
+    ref = RefServer(ref_model, params, RefServeConfig(**scfg),
+                    router=RefRouter())
+    port = Server(port_model, ServeConfig(**scfg),
+                  router=_router("numpy", "cpu"), device="cpu")
+    for srv in (ref, port):
+        srv.router.submit(np.arange(1, 9, dtype=np.int32), 3, 0.5,
+                          arrival=0.0)
+        with pytest.raises(KeyError, match=key):
+            srv.run_wave()
+        assert srv.waves == 0
+
+
 def _server_twin(arch, tol):
     """Both packages' servers over one submission stream: equal waves,
     logits at ``tol`` and tokens up to the first near-tie of each row."""
@@ -364,6 +399,21 @@ def test_serve_launcher_serves_the_new_families(capsys, arch, layers):
     out = capsys.readouterr().out
     assert "12 requests queued" in out and "12 responses" in out
     assert srv.model.cfg.family == get_config(arch).family
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "phi3.5-moe-42b-a6.6b"])
+def test_serve_launcher_serves_the_moe_archs(capsys, arch):
+    """``--arch`` of either MoE config at the launcher's reduced size (2
+    layers, width 64: every expert kept, 8 or 16 of them) serves every
+    request, as the reference's launcher does."""
+    from repro_torch.launch import serve
+    srv = serve.main(["--arch", arch, "--device", "cpu", "--requests", "12",
+                      "--reduced-layers", "2", "--reduced-width", "64",
+                      "--max-new", "6"])
+    out = capsys.readouterr().out
+    assert "12 requests queued" in out and "12 responses" in out
+    assert srv.model.cfg.n_experts == get_config(arch).n_experts
+    assert srv.model.layers[0].moe["w_in"].dtype == torch.bfloat16
 
 
 def test_serve_launcher_refuses_a_checkpoint_until_training_lands(
