@@ -25,7 +25,8 @@ Phases, one line of output each:
             mixtral-8x7b at full width and 8 of its 32 layers (11.74B;
             the full depth does not fit one card), with bfloat16
             weights, behind a Server whose COAX router runs on the device
-            backend; 512 requests drawn as launch/serve.py draws them,
+            backend; 512 requests (384 for zamba2 and minicpm3) drawn as
+            launch/serve.py draws them,
             drained in waves of 8; every admission equal to a
             numpy-backend twin router, one plan dispatch per admission on
             a built index, fused_scan launches counted around the drain;
@@ -1980,6 +1981,10 @@ LM_ARCH, LM_SEED, LM_REQUESTS = "h2o-danube-3-4b", 0, 512
 # pending), fewer waves of the CPU's slow bfloat16 products
 LM_REHEARSE_REQUESTS = 288
 LM_SERVE_ARCHS = (LM_ARCH, "zamba2-2.7b", "minicpm3-4b", "mixtral-8x7b")
+# the two slowest host-bound decoders serve 384 requests (still past the
+# router's 256-pending index build): on a slow host their 512 took 86.9 and
+# 114.7 s of a 970.1 s smoke on an H100 80GB HBM3 at 700 W (PERF.md §6)
+LM_SERVE_REQUESTS = {"zamba2-2.7b": 384, "minicpm3-4b": 384}
 # archs served at a cut depth on one card: mixtral-8x7b's 32 layers hold
 # 46.57B parameters, 93.1 GB of bfloat16 weights, past the card's 80 GB;
 # 8 layers at full width hold 23.5 GB, and their float32 masters (47.0
@@ -2279,7 +2284,8 @@ def lm_serve_phase(torch, dev, card_line, arch=LM_ARCH):
     assert router.backend == "device" and router.device == dev
     rng = np.random.default_rng(LM_SEED)
     budgets = {}
-    n_requests = LM_REQUESTS if cuda else LM_REHEARSE_REQUESTS
+    n_requests = (LM_SERVE_REQUESTS.get(arch, LM_REQUESTS) if cuda
+                  else LM_REHEARSE_REQUESTS)
     for _ in range(n_requests):          # as launch/serve.py draws them
         plen = int(rng.choice([16, 32, 64, 128]))
         rid = srv.submit(
@@ -3147,6 +3153,278 @@ def launchers(torch, dev, cuda, card_line):
         f"build/train_smoke removed ({card_line})")
 
 
+# the mesh phase: the distribution layer (distributed/*, launch/mesh.py) on
+# the one card as a 1x1 (data, model) mesh over a one-rank NCCL group:
+# h2o-danube-3-4b at full width and depth, a 2-layer full-width twin, and
+# gradient compression on mamba2-130m; 2 layers at width 64 on a one-rank
+# gloo group in the rehearsal
+# (lr 1e-4: the steps repeat one batch at a constant rate, no warmup)
+MESH_STEPS = dict(batch=8, seq=256, lr=1e-4)
+MESH_REHEARSE = dict(batch=2, seq=32, lr=1e-4)
+# the compressed run: the reference's tests/test_distributed.py:220 (12
+# Int8 steps over 3 repeated batches, lr 3e-3), at mamba2-130m's full size
+COMPRESS = dict(steps=12, batches=3, lr=3e-3)
+
+
+def mesh_phase(torch, dev, card_line):
+    """The distribution layer on a 1x1 mesh, in three parts.
+
+    1. h2o-danube-3-4b at full width and depth (float32 masters, remat):
+       three plain train steps of one batch (two timed), then the
+       parameters and the plain run's AdamW moments placed on the mesh
+       (DTensors over the same storage, the moments in ZeRO-1 placement,
+       checked to share every tensor's memory); the loss of one batch
+       without the mesh and
+       with it under ``use_rules(rules_for_arch(cfg, mesh))`` on the same
+       weights (relative 1e-5; 0 expected: the same local kernels run);
+       three mesh train steps going on from the plain ones (the first
+       warms DTensor's sharding caches, one is profiled): finite losses,
+       every parameter moved; step ms,
+       card busy share and peak memory beside the plain step's.
+    2. 2 layers at full width: one mesh step and one plain step from the
+       same weights at float32 activations (AdamW eps ``TWIN_EPS``): the
+       losses and every updated parameter within 1e-5.
+    3. Compression: mamba2-130m at full size, 12 Int8 error-feedback
+       steps (``make_compressed_train_step``) over 3 repeated batches:
+       the mean loss of the last 3 below the first 3's; and
+       ``compressed_psum`` over the mesh's one-rank data group equal to
+       the plain quantise-dequantise bit for bit.
+
+    The group (NCCL on the card, gloo in the rehearsal) meets at a
+    ``file://`` store under ``build/`` and is destroyed even on
+    failure."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.compression import (Int8Compressor,
+                                                     compressed_psum,
+                                                     make_compressed_train_step)
+    from repro_torch.distributed.partitioning import use_rules
+    from repro_torch.distributed.sharding import (input_pspecs, place_batch,
+                                                  place_for_training,
+                                                  place_model, place_tensor,
+                                                  rules_for_arch,
+                                                  zero1_state_specs)
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.train import reduced
+    from repro_torch.models import build_model
+    from repro_torch.models.common import make_generator
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.runtime.steps import make_train_step
+
+    t_phase = time.perf_counter()
+    cuda = dev != "cpu"
+    size = MESH_STEPS if cuda else MESH_REHEARSE
+    b, s = size["batch"], size["seq"]
+    store = ROOT / "build" / "mesh_store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    if store.exists():
+        store.unlink()
+    if cuda:
+        torch.cuda.set_device(0)
+    dist.init_process_group("nccl" if cuda else "gloo",
+                            init_method=f"file://{store}", world_size=1,
+                            rank=0)
+    try:
+        mesh = make_local_mesh(1, 1, device="cuda" if cuda else "cpu")
+        rng = np.random.default_rng(LM_SEED)
+
+        def tokens(cfg):
+            v = min(cfg.padded_vocab, 32_000)
+            return {"tokens": rng.integers(0, v, (b, s)).astype(np.int32),
+                    "labels": rng.integers(0, v, (b, s)).astype(np.int32)}
+
+        def placed(model, batch, rules):
+            axes = model.input_logical_axes(ShapeConfig("mesh", s, b,
+                                                        "train"))
+            t = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+            return place_batch(t, mesh, input_pspecs(axes, rules))
+
+        # ---- 1. full width and depth ----
+        cfg = get_config(LM_ARCH)
+        if not cuda:
+            cfg = reduced(cfg, 2, 64)
+        model = build_model(cfg, device=dev).init(
+            make_generator(LM_SEED, dev))
+        n_params = model.param_count()
+        batch = tokens(cfg)
+        state = adamw_init(model)
+        step_fn = make_train_step(model, AdamWConfig(lr=size["lr"]))
+        plain = [float(step_fn(state, batch)["loss"])]    # warm
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        plain_ms = []
+        for _ in range(2):
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            m = step_fn(state, batch)
+            sync(torch, dev)
+            plain_ms.append((time.perf_counter() - t0) * 1e3)
+            plain.append(float(m["loss"]))
+        plain_peak = torch.cuda.max_memory_allocated() if cuda else 0
+        del step_fn, m
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+        with torch.no_grad():
+            plain_loss = float(model.loss(
+                {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}))
+        samples = {n: p.detach().flatten()[:4096].clone()
+                   for n, p in model.named_parameters()}
+        # the parameters and the plain run's AdamW moments placed in
+        # ZeRO-1 placement, over their own storage: the mesh steps go on
+        # from the plain steps
+        ptrs = [t.data_ptr() for t in [*model.parameters(),
+                                       *state["mu"].values(),
+                                       *state["nu"].values()]]
+        rules = rules_for_arch(cfg, mesh)
+        specs = place_model(model, mesh, rules)
+        zero1 = zero1_state_specs(specs, model, mesh)
+        for part in ("mu", "nu"):
+            state[part] = {k: place_tensor(v, mesh, zero1[part][k])
+                           for k, v in state[part].items()}
+        shared = sum(t.to_local().data_ptr() == ptr for t, ptr in zip(
+            [*model.parameters(), *state["mu"].values(),
+             *state["nu"].values()], ptrs))
+        if shared != len(ptrs):
+            raise AssertionError(f"{len(ptrs) - shared} tensors were copied "
+                                 f"when placed on the 1x1 mesh")
+        step_fn = make_train_step(model, AdamWConfig(lr=size["lr"]))
+        with use_rules(rules):
+            with torch.no_grad():
+                mesh_loss = float(model.loss(placed(model, batch, rules))
+                                  .full_tensor())
+            rel = abs(mesh_loss - plain_loss) / abs(plain_loss)
+            if not rel <= 1e-5:
+                raise AssertionError(f"loss {mesh_loss} on the mesh, "
+                                     f"{plain_loss} without it")
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            losses = [float(step_fn(state, batch)["loss"])]
+            first_ms = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            losses.append(float(step_fn(state, batch)["loss"]))
+            mesh_ms = (time.perf_counter() - t0) * 1e3
+            prof = "not measured (no card)"
+            if cuda:
+                out = {}
+                p = lm_profile(torch, lambda: out.update(
+                    step_fn(state, batch)), 1)
+                losses.append(float(out["loss"]))
+                prof = (f"{p[0]:.1f} ms wall, card busy {p[1]:.1f} ms "
+                        f"({100 * p[1] / p[0]:.1f}%), {p[2]:.0f} kernels"
+                        if p else "no device time in the trace")
+        mesh_peak = torch.cuda.max_memory_allocated() if cuda else 0
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"mesh losses not finite: {losses}")
+        still = [n for n, p in model.named_parameters()
+                 if torch.equal(p.to_local().detach().flatten()[:4096],
+                                samples[n])]
+        if still:
+            raise AssertionError(f"parameters that did not move: {still[:5]}")
+        bound, _, _ = train_bound_ms(n_params, b * s)
+        say("mesh", f"{cfg.name} ({cfg.n_layers} layers, d_model "
+            f"{cfg.d_model}, {n_params:,} parameters) on a 1x1 mesh "
+            f"({'NCCL' if cuda else 'gloo'}, one rank): {len(plain)} plain "
+            f"train steps of one {b} x {s} batch (AdamW lr {size['lr']}), "
+            f"loss {plain[0]:.4f} -> {plain[-1]:.4f}; then every parameter "
+            f"and the AdamW moments (ZeRO-1 placement) DTensors over their "
+            f"own storage; loss without the mesh {plain_loss:.6f}, with it "
+            f"{mesh_loss:.6f} (difference {abs(mesh_loss - plain_loss):.3g},"
+            f" relative {rel:.3g}); {len(losses)} mesh train steps go on, "
+            f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, every parameter "
+            f"moved; "
+            f"mesh step {mesh_ms:.1f} ms (the first {first_ms:.1f} ms) "
+            f"against the plain step's {plain_ms[0]:.1f} and "
+            f"{plain_ms[1]:.1f} ms in this run; bound {bound:.1f} ms; "
+            f"profiled mesh step: {prof}; peak {mesh_peak / 2**30:.2f} GiB "
+            f"on the mesh, {plain_peak / 2**30:.2f} GiB plain ({card_line})")
+        del model, state, step_fn, samples
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # ---- 2. 2 layers at full width: mesh step == plain step ----
+        cfg2 = dataclasses.replace(get_config(LM_ARCH), n_layers=2) \
+            if cuda else reduced(get_config(LM_ARCH), 2, 64)
+        weights = twin_weights(torch, cfg2, dev)
+        batch2 = tokens(cfg2)
+        got = {}
+        with activations(torch.float32):
+            for on_mesh in (False, True):
+                model = build_model(cfg2, device=dev)
+                model.load_state_dict(weights)
+                opt = AdamWConfig(lr=size["lr"], eps=TWIN_EPS)
+                if on_mesh:
+                    r2 = rules_for_arch(cfg2, mesh)
+                    state = place_for_training(model, mesh, r2)
+                    with use_rules(r2):
+                        m = make_train_step(model, opt)(state, batch2)
+                else:
+                    state = adamw_init(model)
+                    m = make_train_step(model, opt)(state, batch2)
+                params = {n: (p.to_local() if on_mesh else p).detach().cpu()
+                          for n, p in model.named_parameters()}
+                got[on_mesh] = (float(m["loss"]), params)
+                del model, state, m
+        (l0, p0), (l1, p1) = got[False], got[True]
+        leaf = max(float((p1[n] - p0[n]).abs().max()) for n in p0)
+        if not (abs(l1 - l0) <= 1e-5 * abs(l0) and leaf <= 1e-5):
+            raise AssertionError(f"2-layer mesh step: loss {l1} vs {l0}, "
+                                 f"parameters max_abs_err {leaf}")
+        say("mesh", f"2-layer {LM_ARCH} at d_model {cfg2.d_model}, float32 "
+            f"activations, one step ({b} x {s}, AdamW eps {TWIN_EPS}): mesh "
+            f"loss {l1:.6f} vs plain {l0:.6f}, every updated parameter "
+            f"max_abs_err {leaf:.3g} (bar 1e-5)")
+        del got, p0, p1, weights
+        gc.collect()
+
+        # ---- 3. compression ----
+        cfg3 = get_config(LAUNCH_ARCH)
+        if not cuda:
+            cfg3 = reduced(cfg3, 2, 64)
+        model = build_model(cfg3, device=dev).init(
+            make_generator(LM_SEED, dev))
+        comp = Int8Compressor()
+        step = make_compressed_train_step(model, AdamWConfig(
+            lr=COMPRESS["lr"]), comp)
+        opt, ef = adamw_init(model), comp.init(model)
+        batches = [tokens(cfg3) for _ in range(COMPRESS["batches"])]
+        t0 = time.perf_counter()
+        c_losses = [float(step(opt, ef, batches[i % COMPRESS["batches"]])
+                          ["loss"]) for i in range(COMPRESS["steps"])]
+        c_s = time.perf_counter() - t0
+        first, last = np.mean(c_losses[:3]), np.mean(c_losses[-3:])
+        if not last < first:
+            raise AssertionError(f"compressed training did not learn: "
+                                 f"{c_losses}")
+        x = torch.randn(1 << 20, generator=make_generator(LM_SEED, dev),
+                        device=dev)
+        scale = torch.clamp_min(x.abs().max(), 1e-12) / 127.0
+        want = torch.clamp(torch.round(x / scale), -127, 127) \
+            .to(torch.int32).float() * scale
+        got_psum = compressed_psum(x.clone(), mesh.get_group("data"))
+        if not torch.equal(got_psum, want):
+            raise AssertionError("compressed_psum over one rank differs "
+                                 "from the plain quantise-dequantise")
+        say("mesh", f"compression: {LAUNCH_ARCH} ({model.param_count():,} "
+            f"parameters), {COMPRESS['steps']} Int8 error-feedback steps "
+            f"over {COMPRESS['batches']} repeated {b} x {s} batches in "
+            f"{c_s:.1f} s, mean loss of the first 3 {first:.4f} -> last 3 "
+            f"{last:.4f}; compressed_psum of 2^20 floats over the one-rank "
+            f"data group == the plain quantise-dequantise (bit for bit; "
+            f"wire {comp.wire_bytes_ratio():.2f} of float32); phase "
+            f"{time.perf_counter() - t_phase:.1f} s")
+        del model, step, opt, ef
+    finally:
+        dist.destroy_process_group()
+        if store.exists():
+            store.unlink()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rehearse", action="store_true",
@@ -3173,6 +3451,7 @@ def main(argv=None) -> int:
         for arch in LM_STEPS_ARCHS:
             lm_steps_phase(torch, "cpu", "no card", arch)
         lm_train_phase(torch, "cpu", "no card")
+        mesh_phase(torch, "cpu", "no card")
         run = main_phase(torch, "cpu", REHEARSE)
         segs = segments_phase(torch, run, REHEARSE, "cpu")
         ops_phase(torch, run, segs, REHEARSE, "cpu")
@@ -3209,6 +3488,9 @@ def main(argv=None) -> int:
     lm_train_phase(torch, "cuda", card_line)
     release_lm(torch, "lm_train")
     mark("lm_train")
+    mesh_phase(torch, "cuda", card_line)
+    release_lm(torch, "mesh")
+    mark("mesh")
     run = main_phase(torch, "cuda", cfg)
     mark("main")
     segs = segments_phase(torch, run, cfg, "cuda")

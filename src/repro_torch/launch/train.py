@@ -1,7 +1,10 @@
-"""Training launcher: the fault-tolerant train loop on one card.
+"""Training launcher: the fault-tolerant train loop, on one card or on a
+(data, model) mesh of ranks.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m \
         --steps 200 --batch 8 --seq 256 [--curate] [--device cuda]
+    PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --mesh-data 2 --mesh-model 2 ...
 
 The port of ``repro.launch.train``, with its flags and defaults and a
 ``--device`` (default ``cuda``; ``cpu`` runs on the host).  ``--curate``
@@ -11,9 +14,15 @@ backend (one ``fused_scan`` wave on the card).  Checkpoints land in
 newest.  ``--reduced-layers`` shrinks the config (``reduced``, shared
 with the serving launcher); without it the config runs at full size.
 The default arch is mamba2-130m (the ssm family); ``--arch`` takes any
-config ``build_model`` builds (dense GQA or MLA, ssm, hybrid).  A mesh
-(``--mesh-data`` or ``--mesh-model`` > 1) waits for the port of
-``distributed/*`` (ROADMAP queue 1, item 3(c)) and is refused.
+config ``build_model`` builds (dense GQA or MLA, ssm, hybrid).
+
+A mesh (``--mesh-data`` x ``--mesh-model`` > 1) runs under ``torchrun``
+with exactly that many ranks (any other world size is refused): each
+rank builds the model from the same seed, the arch's rules
+(``rules_for_arch``) place it and its AdamW state on the mesh, and every
+rank is fed the GLOBAL batch (the loader runs as process 0 of 1, as the
+reference's feeds its mesh from one host).  ``--device cuda`` puts rank
+``LOCAL_RANK`` on its card over NCCL, ``cpu`` uses gloo.
 """
 from __future__ import annotations
 
@@ -22,14 +31,18 @@ import dataclasses
 import os
 import tempfile
 
+import torch
 import torch.distributed as dist
 
 from ..configs import get_config, list_configs
 from ..data.curation import CuratedSelector, MetaQuery
 from ..data.pipeline import ShardedLoader, make_corpus
+from ..distributed.partitioning import use_rules
+from ..distributed.sharding import rules_for_arch
 from ..models import build_model
 from ..optim import AdamWConfig
 from ..runtime.train_loop import TrainLoopConfig, train
+from .mesh import make_local_mesh
 
 __all__ = ["reduced", "main"]
 
@@ -54,6 +67,26 @@ def _process():
     return 0, 1
 
 
+def _join_mesh(ap, n: int, device: str) -> bool:
+    """Join the job's process group (``torchrun``'s environment) unless
+    the caller has; refuse a world of other than ``n`` ranks.  True when
+    this call initialised the group."""
+    joined = False
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if not dist.is_initialized() and world == n:
+        if device == "cuda":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+        dist.init_process_group("nccl" if device == "cuda" else "gloo")
+        joined = True
+    if dist.is_initialized():
+        world = dist.get_world_size()
+    if world != n:
+        ap.error(f"a {n}-rank mesh runs under torchrun with {n} ranks: "
+                 f"torchrun --nproc-per-node {n} -m repro_torch.launch.train"
+                 f" ... (this job has {world})")
+    return joined
+
+
 def main(argv=None):
     """Run the launcher; returns ``train``'s output."""
     ap = argparse.ArgumentParser()
@@ -74,10 +107,9 @@ def main(argv=None):
                     help="select training docs through the COAX index")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.mesh_data * args.mesh_model > 1:
-        ap.error("a (data, model) mesh needs the port of distributed/* "
-                 "(ROADMAP queue 1, item 3(c)); run with --mesh-data 1 "
-                 "--mesh-model 1")
+    use_mesh = args.mesh_data * args.mesh_model > 1
+    joined = use_mesh and _join_mesh(ap, args.mesh_data * args.mesh_model,
+                                     args.device)
 
     cfg = get_config(args.arch)
     if args.reduced_layers:
@@ -92,16 +124,26 @@ def main(argv=None):
         doc_ids = sel.select(MetaQuery(token_len=(args.seq // 2, 32768),
                                        quality=(0.5, 1.1)))
         print(f"[launch] COAX curation: {doc_ids.size:,} docs")
-    rank, world = _process()
+    rank, world = (0, 1) if use_mesh else _process()
     loader = ShardedLoader(corpus, batch_size=args.batch, seq_len=args.seq,
                            doc_ids=doc_ids, process_index=rank,
                            process_count=world)
     loop_cfg = TrainLoopConfig(steps=args.steps, ckpt_dir=args.ckpt_dir,
                                ckpt_every=args.ckpt_every, log_every=10)
     try:
-        out = train(model, iter(loader), AdamWConfig(lr=args.lr), loop_cfg)
+        if use_mesh:
+            mesh = make_local_mesh(args.mesh_data, args.mesh_model,
+                                   device=args.device)
+            with use_rules(rules_for_arch(cfg, mesh)):
+                out = train(model, iter(loader), AdamWConfig(lr=args.lr),
+                            loop_cfg, mesh=mesh)
+        else:
+            out = train(model, iter(loader), AdamWConfig(lr=args.lr),
+                        loop_cfg)
     finally:
         loader.close()
+        if joined:
+            dist.destroy_process_group()
     print(f"[launch] finished step {out['final_step']}, "
           f"loss {out['history'][-1]['loss']:.4f}, restarts {out['restarts']}")
     return out

@@ -10,7 +10,8 @@ activation-dtype operands, as the reference's
 ``preferred_element_type=jnp.float32``: the operands are upcast (exact,
 bfloat16 embeds in float32) before each product, and the probabilities
 are cast back to the value dtype before the PV product.  Masks use
-``NEG = -1e30``, not ``-inf``.
+``NEG = -1e30``, not ``-inf``.  On a mesh the attention core runs on
+each rank's local block (``_sharded_attention``).
 """
 from __future__ import annotations
 
@@ -19,15 +20,24 @@ from typing import Mapping, Optional, Tuple
 
 import torch
 
+from ..distributed.partitioning import is_dtensor, shard
 from .common import (_w, dense_init, mrope_tables, rope_tables, rotate,
                      softcap)
 
 __all__ = ["NEG", "chunked_attention", "decode_attention", "gqa_init",
            "gqa_forward", "decode_rope_tables", "decode_valid", "gqa_decode",
            "mla_init", "mla_forward", "mla_decode", "cross_attn_forward",
-           "cross_kv"]
+           "cross_kv", "GQA_AXES", "MLA_AXES"]
 
 NEG = -1e30
+
+# the reference's logical axes of the attention parameters
+GQA_AXES = {"wq": ("embed", "heads"), "wk": ("embed", "kv_heads"),
+            "wv": ("embed", "kv_heads"), "wo": ("heads", "embed")}
+MLA_AXES = {"w_dq": ("embed", "q_lora"), "w_uq": ("q_lora", "heads"),
+            "w_dkv": ("embed", "kv_lora"), "w_kpe": ("embed", None),
+            "w_uk": ("kv_lora", "heads"), "w_uv": ("kv_lora", "heads"),
+            "wo": ("heads", "embed")}
 
 
 def _mm32(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -51,7 +61,12 @@ def chunked_attention(
     chunk: int = 1024,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Online-softmax attention over KV chunks; returns (B, Sq, H, vd)."""
+    """Online-softmax attention over KV chunks; returns (B, Sq, H, vd).
+    DTensor operands run as ``_sharded_attention``."""
+    kw = dict(q_offset=q_offset, causal=causal, window=window,
+              attn_softcap=attn_softcap, chunk=chunk, scale=scale)
+    if is_dtensor(q):
+        return _sharded_attention(q, k, v, **kw)
     b, sq, h, hd = q.shape
     _, skv, kh, vd = v.shape
     rep = h // kh
@@ -90,6 +105,41 @@ def chunked_attention(
         m = m_new
     out = acc / torch.clamp_min(l[..., None], 1e-30)
     return out.reshape(b, sq, h, vd).to(q.dtype)
+
+
+def _sharded_attention(q, k, v, *, q_offset: int = 0, **kw):
+    """``chunked_attention`` of DTensors, each rank on its local block:
+    attention is independent across batch rows and (GQA-aligned) heads,
+    so a rank keeps q's batch and head shards, takes k/v alike, and with
+    q's sequence sharded (context parallel, "attn_seq") the whole k/v
+    sequence and an offset for its causal mask.  Any other placement is
+    gathered first.  (Run through DTensor, the score einsums merge the
+    data-sharded batch with the model-sharded heads into one bmm batch
+    dim, a ``_StridedShard`` whose redistribution plans cost seconds
+    each.)"""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    mesh = q.device_mesh
+    qp, kp = [], []
+    for i, p in enumerate(q.placements):
+        if p == Shard(0):
+            qp.append(p)
+            kp.append(p)
+        elif p == Shard(2) and k.placements[i] == Shard(2):
+            qp.append(p)
+            kp.append(p)
+        elif p == Shard(1):
+            n, r = mesh.size(i), mesh.get_local_rank(i)
+            q_offset += min(r * -(-q.shape[1] // n), q.shape[1])
+            qp.append(p)
+            kp.append(Replicate())
+        else:
+            qp.append(Replicate())
+            kp.append(Replicate())
+    q, k, v = (q.redistribute(mesh, qp), k.redistribute(mesh, kp),
+               v.redistribute(mesh, kp))
+    out = chunked_attention(q.to_local(), k.to_local(), v.to_local(),
+                            q_offset=q_offset, **kw)
+    return DTensor.from_local(out, mesh, qp, run_check=False)
 
 
 def decode_attention(
@@ -136,6 +186,9 @@ def _project_qkv(params: Mapping[str, torch.Tensor], x, n_heads, n_kv,
     q = (x @ _w(params, "wq", x)).reshape(b, s, n_heads, head_dim)
     k = (x @ _w(params, "wk", x)).reshape(b, s, n_kv, head_dim)
     v = (x @ _w(params, "wv", x)).reshape(b, s, n_kv, head_dim)
+    q = shard(q, "batch", "attn_seq", "heads", None)
+    k = shard(k, "batch", None, "kv_heads", None)
+    v = shard(v, "batch", None, "kv_heads", None)
     return q, k, v
 
 
@@ -166,8 +219,9 @@ def gqa_forward(
     out = chunked_attention(q, k, v, causal=causal, window=window,
                             attn_softcap=attn_softcap, chunk=chunk,
                             scale=query_scale)
+    out = shard(out, "batch", "attn_seq", "heads", None)
     proj = out.reshape(b, s, n_heads * head_dim) @ _w(params, "wo", x)
-    return proj, (k, v)
+    return shard(proj, "batch", "seq", "embed"), (k, v)
 
 
 def decode_rope_tables(b: int, pos: int, head_dim: int, rope_theta: float,
@@ -297,10 +351,12 @@ def mla_forward(params, x, *, n_heads: int, q_lora: int, kv_lora: int,
     b, s, _ = x.shape
     q, k, v, c_kv, k_pe = _mla_qkv(params, x, n_heads, nope_dim, rope_dim,
                                    v_dim, rope_theta)
+    q = shard(q, "batch", "attn_seq", "heads", None)
     scale = 1.0 / math.sqrt(nope_dim + rope_dim)
     out = chunked_attention(q, k, v, causal=True, chunk=chunk, scale=scale)
+    out = shard(out, "batch", "attn_seq", "heads", None)
     proj = out.reshape(b, s, n_heads * v_dim) @ _w(params, "wo", x)
-    return proj, (c_kv, k_pe)
+    return shard(proj, "batch", "seq", "embed"), (c_kv, k_pe)
 
 
 def mla_decode(params, x, cache_ckv, cache_kpe, step: int, *, n_heads: int,
@@ -362,9 +418,11 @@ def cross_attn_forward(params, x, enc_kv, *, n_heads: int, n_kv: int,
     b, s, _ = x.shape
     k, v = enc_kv
     q = (x @ _w(params, "wq", x)).reshape(b, s, n_heads, head_dim)
+    q = shard(q, "batch", "attn_seq", "heads", None)
     out = chunked_attention(q, k, v, causal=False,
                             chunk=min(chunk, k.shape[1]))
-    return out.reshape(b, s, n_heads * head_dim) @ _w(params, "wo", x)
+    proj = out.reshape(b, s, n_heads * head_dim) @ _w(params, "wo", x)
+    return shard(proj, "batch", "seq", "embed")
 
 
 def cross_kv(params, enc_out, *, n_kv: int, head_dim: int):

@@ -25,6 +25,13 @@ compute something else:
   z-loss term; ``chunked_softmax_cross_entropy`` puts each sequence chunk
   under ``torch.utils.checkpoint`` as the reference puts it under
   ``jax.checkpoint``.
+
+On a mesh (parameters placed as DTensors, ``distributed.sharding``) the
+models run under the active rules: the reference's ``shard(...)`` points
+(the identity without rules) sit at the same places in every family,
+and every tensor a forward creates beside a DTensor operand (RoPE
+tables, the SSD's mask and entering state, zero accumulators) is made a
+``Replicate`` DTensor by ``replicate_like``.
 """
 from __future__ import annotations
 
@@ -36,17 +43,28 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..distributed.partitioning import replicate_like, shard
+
 __all__ = ["DTYPE", "PARAM_DTYPE", "dense_init", "embedding_init",
            "rmsnorm_init", "cast_params", "rmsnorm", "softcap", "mlp_init",
            "mlp_apply", "silu", "gelu", "rope_freqs", "rope_tables",
            "mrope_tables", "rotate", "apply_rope", "apply_mrope", "embed",
            "unembed", "make_generator",
-           "softmax_cross_entropy", "chunked_softmax_cross_entropy"]
+           "softmax_cross_entropy", "chunked_softmax_cross_entropy",
+           "EMBED_AXES", "NORM_AXES", "MLP_AXES"]
 
 DTYPE = torch.bfloat16       # activation/weight dtype on the wire
 PARAM_DTYPE = torch.float32  # master weights
 
 Params = Dict[str, torch.Tensor]
+
+# the reference's logical axes of each parameter (``repro.models.common``'s
+# inits return them beside the arrays); ``Model.param_logical_axes`` reads
+# these tables by parameter name
+EMBED_AXES = ("vocab", "embed")
+NORM_AXES = (None,)
+MLP_AXES = {"w_in": ("embed", "ff"), "w_gate": ("embed", "ff"),
+            "w_out": ("ff", "embed")}
 
 
 # --------------------------------------------------------------------------- #
@@ -169,7 +187,8 @@ def mlp_apply(params: Mapping[str, torch.Tensor], x: torch.Tensor, act=silu):
         h = act(x @ _w(params, "w_gate", x)) * h
     else:
         h = act(h)
-    return h @ _w(params, "w_out", x)
+    h = shard(h, "batch", "mlp_seq", "ff")
+    return shard(h @ _w(params, "w_out", x), "batch", "seq", "embed")
 
 
 # --------------------------------------------------------------------------- #
@@ -225,7 +244,7 @@ def mrope_tables(positions3: torch.Tensor, head_dim: int,
 
 def rotate(x: torch.Tensor, tables) -> torch.Tensor:
     """Apply precomputed ``rope_tables`` to x (..., S, H, hd), in float32."""
-    sin, cos = tables
+    sin, cos = (replicate_like(t, x) for t in tables)
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
@@ -255,13 +274,13 @@ def embed(params_w: torch.Tensor, tokens: torch.Tensor,
         # tensor would wait for the card), as JAX's weakly typed scalar is
         out = out * float(torch.tensor(math.sqrt(params_w.shape[1]),
                                        dtype=out.dtype))
-    return out
+    return shard(out, "batch", "seq", "embed")
 
 
 def unembed(params_w: torch.Tensor, x: torch.Tensor,
             cap: Optional[float] = None):
     logits = x @ params_w.to(x.dtype).T
-    return softcap(logits.float(), cap)
+    return shard(softcap(logits.float(), cap), "batch", "logit_seq", "vocab")
 
 
 # --------------------------------------------------------------------------- #
@@ -269,7 +288,12 @@ def unembed(params_w: torch.Tensor, x: torch.Tensor,
 # --------------------------------------------------------------------------- #
 
 def _ce_terms(logits: torch.Tensor, labels: torch.Tensor, z_loss: float):
-    """Per-token ``lse - logit[label]`` (+ ``z_loss * lse**2``), float32."""
+    """Per-token ``lse - logit[label]`` (+ ``z_loss * lse**2``), float32.
+
+    On a mesh the logits' vocab is gathered first (``shard(logits,
+    "batch", "logit_seq", None)``): DTensor has no rule for
+    ``take_along_dim`` over a sharded vocab."""
+    logits = shard(logits, "batch", "logit_seq", None)
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.take_along_dim(logits, labels.long()[..., None], dim=-1)[..., 0]
     loss = lse - ll
@@ -293,7 +317,8 @@ def chunked_softmax_cross_entropy(x: torch.Tensor, w_un: torch.Tensor,
     b, s, d = x.shape
     if s % seq_chunk or s <= seq_chunk:
         return softmax_cross_entropy(unembed(w_un, x, cap=cap), labels, z_loss)
-    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    total = replicate_like(torch.zeros((), dtype=torch.float32,
+                                       device=x.device), x)
     for lo in range(0, s, seq_chunk):
         hi = lo + seq_chunk
         total = total + checkpoint(_ce_chunk, x[:, lo:hi], w_un,

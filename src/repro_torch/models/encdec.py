@@ -19,11 +19,13 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..configs.base import ModelConfig
+from ..distributed.partitioning import replicate_like, shard
 from . import common
-from .attention import (cross_attn_forward, cross_kv, decode_rope_tables,
-                        decode_valid, gqa_decode, gqa_forward, gqa_init)
-from .common import (embed, embedding_init, gelu, mlp_apply, mlp_init,
-                     rmsnorm, rmsnorm_init, unembed)
+from .attention import (GQA_AXES, cross_attn_forward, cross_kv,
+                        decode_rope_tables, decode_valid, gqa_decode,
+                        gqa_forward, gqa_init)
+from .common import (MLP_AXES, NORM_AXES, embed, embedding_init, gelu,
+                     mlp_apply, mlp_init, rmsnorm, rmsnorm_init, unembed)
 from .transformer import _fill_flat, _Layer, _remat, load_tree
 
 __all__ = ["EncoderLayer", "CrossDecoderLayer", "encdec_init", "encode",
@@ -58,12 +60,19 @@ class EncoderLayer(_Layer):
     """One bidirectional self-attention + MLP block."""
 
     param_tree = staticmethod(_enc_layer_init)
+    param_axes = staticmethod(lambda cfg: {
+        "ln1": NORM_AXES, "attn": GQA_AXES, "ln2": NORM_AXES,
+        "mlp": {k: MLP_AXES[k] for k in ("w_in", "w_out")}})
 
 
 class CrossDecoderLayer(_Layer):
     """One causal self-attention + cross-attention + MLP block."""
 
     param_tree = staticmethod(_dec_layer_init)
+    param_axes = staticmethod(lambda cfg: {
+        "ln1": NORM_AXES, "attn": GQA_AXES, "lnx": NORM_AXES,
+        "xattn": GQA_AXES, "ln2": NORM_AXES,
+        "mlp": {k: MLP_AXES[k] for k in ("w_in", "w_out")}})
 
 
 @torch.no_grad()
@@ -94,7 +103,7 @@ def _enc_layer_fwd(p, cfg: ModelConfig, h, chunk):
 
 def encode(model, cfg: ModelConfig, frames, *, chunk=1024):
     """frames (B, Se, D) -> the encoder output (B, Se, D), final-normed."""
-    x = frames.to(common.DTYPE)
+    x = shard(frames.to(common.DTYPE), "batch", "seq", "embed")
     layer = _remat(_enc_layer_fwd, cfg)
     for p_l in model.enc_layers:
         x = layer(p_l, cfg, x, chunk)
@@ -127,7 +136,8 @@ def encdec_forward(model, cfg: ModelConfig, frames, tokens, *, chunk=1024,
     for p_l in model.dec_layers:
         x = layer(p_l, cfg, x, enc_out, chunk)
     x = rmsnorm(x, model.final_norm, cfg.rms_eps)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = replicate_like(torch.zeros((), dtype=torch.float32,
+                                     device=x.device), x)
     if logits_slice == "hidden":
         return x, aux
     if logits_slice == "last":

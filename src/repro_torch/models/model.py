@@ -21,17 +21,18 @@ in float32, as ``jax.grad`` gives them.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
-from ..configs.base import ModelConfig
+from ..configs.base import ModelConfig, ShapeConfig
+from ..distributed.partitioning import logical_to_spec
 from . import common
 from . import encdec as ed
 from . import transformer as tf
-from .common import (chunked_softmax_cross_entropy, embed, embedding_init,
-                     rmsnorm_init)
+from .common import (EMBED_AXES, NORM_AXES, chunked_softmax_cross_entropy,
+                     embed, embedding_init, rmsnorm_init)
 
 __all__ = ["Model", "build_model"]
 
@@ -69,7 +70,10 @@ class Model(nn.Module):
     (``CrossDecoderLayer``), ``enc_norm`` and ``final_norm`` beside
     ``embed``, and unembeds with ``embed``.  Construction allocates the
     float32 parameters uninitialised (nothing on ``meta``); ``init``
-    fills them."""
+    fills them.  ``mesh`` is the ``DeviceMesh`` the parameters are placed
+    on (``distributed.sharding.place_model``), else None."""
+
+    mesh = None
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
@@ -198,6 +202,77 @@ class Model(nn.Module):
             return ed.init_cache(self.cfg, batch, cache_len,
                                  enc_len or cache_len, device=self.device)
         return tf.init_cache(self.cfg, batch, cache_len, device=self.device)
+
+    # ---------------------- logical axes and specs ----------------------- #
+    def param_logical_axes(self) -> Dict[str, Tuple]:
+        """{parameter name: the reference's logical axes}.  A per-layer
+        tensor (``layers.<i>.<path>``, any stack) drops the reference's
+        leading ``"layers"``; an MoE leaf keeps ``("experts", ...)``.
+        Works on a model built on ``meta``."""
+        out = {}
+        for name, _ in self.named_parameters():
+            parts = name.split(".")
+            top = getattr(self, parts[0])
+            if isinstance(top, nn.ModuleList):
+                node = top[int(parts[1])].param_axes(self.cfg)
+                for k in parts[2:]:
+                    node = node[k]
+            else:
+                node = EMBED_AXES if parts[0] in ("embed", "unembed") \
+                    else NORM_AXES
+            out[name] = tuple(node)
+        return out
+
+    def param_pspecs(self, rules=None) -> Dict[str, Tuple]:
+        """{parameter name: ``Spec``} of ``param_logical_axes`` under
+        ``rules`` (or the active ones)."""
+        return {k: logical_to_spec(ax, rules)
+                for k, ax in self.param_logical_axes().items()}
+
+    def cache_logical_axes(self, batch: int, cache_len: int, *,
+                           enc_len=None) -> Dict[str, Tuple]:
+        """The reference's logical axes of each decode-cache entry (the
+        caches keep the stacked layout, so ``"layers"`` leads)."""
+        cfg = self.cfg
+        layers = ("layers", "batch", "kv_len", "kv_heads", None)
+        if cfg.family == "encdec":
+            return dict.fromkeys(("k", "v", "ck", "cv"), layers)
+        if cfg.family in ("ssm", "hybrid"):
+            conv_bc = ("layers", "batch", None, None)
+            axes = {"conv_x": ("layers", "batch", None, None, "ssm_inner"),
+                    "conv_b": conv_bc, "conv_c": conv_bc,
+                    "ssm": ("layers", "batch", None, "ssm_inner", None)}
+            if cfg.family == "hybrid":
+                axes["k"] = axes["v"] = layers
+            return axes
+        if cfg.mla:
+            return dict.fromkeys(("ckv", "kpe"),
+                                 ("layers", "batch", "kv_len", None))
+        if cfg.paired_local_global:
+            return dict.fromkeys(("k_loc", "v_loc", "k_glob", "v_glob"),
+                                 layers)
+        return {"k": layers, "v": layers}
+
+    def input_logical_axes(self, shape: ShapeConfig) -> Dict[str, Tuple]:
+        """The logical axes of each input of a ``shape`` cell's batch."""
+        cfg = self.cfg
+        if shape.kind == "train":
+            if cfg.family == "encdec":
+                return {"frames": ("batch", "seq", "embed"),
+                        "tokens": ("batch", "seq"), "labels": ("batch", "seq")}
+            if cfg.family == "vlm":
+                return {"patches": ("batch", "seq", "embed"),
+                        "tokens": ("batch", "seq"), "labels": ("batch", "seq")}
+            return {"tokens": ("batch", "seq"), "labels": ("batch", "seq")}
+        if shape.kind == "prefill":
+            if cfg.family == "encdec":
+                return {"frames": ("batch", "seq", "embed"),
+                        "tokens": ("batch", None)}
+            if cfg.family == "vlm":
+                return {"patches": ("batch", "seq", "embed"),
+                        "tokens": ("batch", "seq")}
+            return {"tokens": ("batch", "seq")}
+        return {"tokens": ("batch", None)}
 
     # --------------------------- accounting ----------------------------- #
     def param_count(self) -> int:

@@ -32,9 +32,17 @@ from typing import Mapping, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..distributed.partitioning import (is_dtensor, replicate_like,
+                                        replicated, shard, use_rules)
 from .common import PARAM_DTYPE, dense_init, silu
 
-__all__ = ["moe_init", "capacity", "route", "moe_apply"]
+__all__ = ["moe_init", "capacity", "route", "moe_apply", "MOE_AXES"]
+
+# the reference's logical axes of the MoE parameters
+MOE_AXES = {"router": ("embed", None),
+            "w_in": ("experts", "embed", "expert_ff"),
+            "w_gate": ("experts", "embed", "expert_ff"),
+            "w_out": ("experts", "expert_ff", "embed")}
 
 
 def _experts(generator, shape, scale: float, device):
@@ -87,7 +95,31 @@ def moe_apply(params: Mapping[str, torch.Tensor], x: torch.Tensor, *,
               n_experts: int, top_k: int = 2, capacity_factor: float = 1.25,
               act=silu) -> Tuple[torch.Tensor, torch.Tensor]:
     """(output (B, S, D) in x's dtype, the Switch aux loss): x (B, S, D),
-    each batch row routed on its own (see the module's docstring)."""
+    each batch row routed on its own (see the module's docstring).
+
+    On a mesh (``x`` a DTensor) the input and the layer's parameters are
+    gathered (``replicated``) and the whole dispatch runs on the local
+    full tensors, every rank alike, with the rules off; the output comes
+    back as a ``Replicate`` DTensor and is sharded as the reference's.
+    DTensor runs the sharded dispatch forward but not its backward: the
+    expert ``einsum``'s backward views a non-contiguous local shard of the
+    (E, B, C, F) product when batch and experts are both sharded ("view
+    size is not compatible"), and with the products gathered another
+    backward node of the route's index/index_put/gather ops fails the
+    same way (torch 2.13)."""
+    if not is_dtensor(x):
+        return _dispatch(params, x, n_experts=n_experts, top_k=top_k,
+                         capacity_factor=capacity_factor, act=act)
+    local = {k: replicated(v).to_local() for k, v in params.items()}
+    with use_rules(None):
+        out, aux = _dispatch(local, replicated(x).to_local(),
+                             n_experts=n_experts, top_k=top_k,
+                             capacity_factor=capacity_factor, act=act)
+    return (shard(replicate_like(out, x), "batch", "seq", "embed"),
+            replicate_like(aux, x))
+
+
+def _dispatch(params, x, *, n_experts, top_k, capacity_factor, act):
     b, s, d = x.shape
     e, k = n_experts, top_k
     probs, gate_vals, gate_idx = route(params["router"], x, k)
@@ -112,15 +144,17 @@ def moe_apply(params: Mapping[str, torch.Tensor], x: torch.Tensor, *,
     gathered = x.gather(1, tok_sorted[..., None].expand(b, p, d))
     expert_in = x.new_zeros((b, e, cap + 1, d))
     expert_in[rows, e_sorted, slot] = gathered
-    expert_in = expert_in[:, :, :cap]
+    expert_in = shard(expert_in[:, :, :cap], "batch", "experts", None,
+                      "embed")
 
     # ---- the experts' gated FFN over every slot ------------------------- #
     h = torch.einsum("becd,edf->becf", expert_in, params["w_in"].to(x.dtype))
     g = torch.einsum("becd,edf->becf", expert_in,
                      params["w_gate"].to(x.dtype))
-    h = act(g) * h
+    h = shard(act(g) * h, "batch", "experts", None, "expert_ff")
     expert_out = torch.einsum("becf,efd->becd", h,
                               params["w_out"].to(x.dtype))
+    expert_out = shard(expert_out, "batch", "experts", None, "embed")
 
     # ---- combine: each kept pair's output times its gate, summed a token - #
     pair_out = expert_out[rows, e_sorted, torch.where(keep, pos, 0)]
@@ -128,7 +162,8 @@ def moe_apply(params: Mapping[str, torch.Tensor], x: torch.Tensor, *,
     pair_out = pair_out * gate_sorted[..., None].to(x.dtype)
     by_pair = pair_out.gather(1, torch.argsort(order, dim=-1)[..., None]
                               .expand(b, p, d))       # back to pair order
-    out = by_pair.reshape(b, s, k, d).sum(dim=2)
+    out = shard(by_pair.reshape(b, s, k, d).sum(dim=2), "batch", "seq",
+                "embed")
 
     # load-balancing auxiliary loss (Switch): E * sum_e f_e * p_e
     me = probs.mean(dim=(0, 1))

@@ -24,12 +24,23 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from ..distributed.partitioning import replicate_like, shard
 from .common import _empty, _w, dense_init, silu
 
 __all__ = ["CONV_K", "mamba2_init", "ssd_chunked", "mamba2_forward",
-           "mamba2_decode"]
+           "mamba2_decode", "MAMBA2_AXES"]
 
 CONV_K = 4
+
+# the reference's logical axes of a Mamba2 block's parameters
+MAMBA2_AXES = {"w_z": ("embed", None, "ssm_inner"),
+               "w_x": ("embed", None, "ssm_inner"),
+               "w_b": ("embed", None), "w_c": ("embed", None),
+               "w_dt": ("embed", None), "conv_x": (None, None, "ssm_inner"),
+               "conv_b": (None, None), "conv_c": (None, None),
+               "A_log": (None,), "dt_bias": (None,), "D": (None,),
+               "norm": (None, "ssm_inner"),
+               "w_out": (None, "ssm_inner", "embed")}
 
 Params = Dict[str, torch.Tensor]
 
@@ -119,7 +130,8 @@ def _segsum(dA: torch.Tensor) -> torch.Tensor:
     l = dA.shape[-1]
     csum = dA.cumsum(dim=-1)
     diff = csum[..., :, None] - csum[..., None, :]
-    mask = torch.ones((l, l), dtype=torch.bool, device=dA.device).tril()
+    mask = replicate_like(torch.ones((l, l), dtype=torch.bool,
+                                     device=dA.device).tril(), dA)
     # mask BEFORE exp: upper-triangle diffs are large-positive and would
     # overflow; masking after exp leaves 0 * inf = NaN in the backward pass
     diff = torch.where(mask, diff, -math.inf)
@@ -164,7 +176,8 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     # inter-chunk recurrence over nc: the state entering each chunk
     chunk_decay = torch.exp(dA_tot[:, :, 0, :])            # (b,nc,h)
     h_state = (init_state if init_state is not None
-               else torch.zeros((b, h, p, n), dtype=x.dtype, device=x.device))
+               else replicate_like(torch.zeros((b, h, p, n), dtype=x.dtype,
+                                               device=x.device), x))
     entering = []
     for c in range(nc):
         entering.append(h_state)
@@ -192,8 +205,9 @@ def mamba2_forward(params: Params, hidden: torch.Tensor, *, d_model: int,
     b, s, _ = hidden.shape
     n_heads = expand * d_model // head_p
 
-    z = _proj(hidden, params, "w_z")                       # (b,s,h,p)
-    x = _proj(hidden, params, "w_x")
+    z = shard(_proj(hidden, params, "w_z"),                # (b,s,h,p)
+              "batch", None, None, "ssm_inner")
+    x = shard(_proj(hidden, params, "w_x"), "batch", None, None, "ssm_inner")
     Bp = _proj(hidden, params, "w_b")                      # (b,s,n)
     Cp = _proj(hidden, params, "w_c")
     dt = _proj(hidden, params, "w_dt")                     # (b,s,h)
@@ -215,6 +229,7 @@ def mamba2_forward(params: Params, hidden: torch.Tensor, *, d_model: int,
     y = _gated_norm(y, z, params["norm"]).to(hidden.dtype)
     out = y.reshape(b, s, -1) @ _w(params, "w_out", hidden).reshape(
         -1, d_model)
+    out = shard(out, "batch", "seq", "embed")
     if return_state:
         return out, ({"x": tail_x, "b": tail_b, "c": tail_c}, final)
     return out

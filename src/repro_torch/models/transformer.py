@@ -33,14 +33,17 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from ..distributed.partitioning import replicate_like, shard
 from . import common
-from .attention import (decode_rope_tables, decode_valid, gqa_decode,
-                        gqa_forward, gqa_init, mla_decode, mla_forward,
-                        mla_init)
-from .common import (embed, embedding_init, gelu, mlp_apply, mlp_init,
-                     rmsnorm, rmsnorm_init, silu, unembed)
-from .moe import moe_apply, moe_init
-from .ssm import CONV_K, mamba2_decode, mamba2_forward, mamba2_init
+from .attention import (GQA_AXES, MLA_AXES, decode_rope_tables,
+                        decode_valid, gqa_decode, gqa_forward, gqa_init,
+                        mla_decode, mla_forward, mla_init)
+from .common import (MLP_AXES, NORM_AXES, embed, embedding_init, gelu,
+                     mlp_apply, mlp_init, rmsnorm, rmsnorm_init, silu,
+                     unembed)
+from .moe import MOE_AXES, moe_apply, moe_init
+from .ssm import (CONV_K, MAMBA2_AXES, mamba2_decode, mamba2_forward,
+                  mamba2_init)
 
 __all__ = ["BIG_WINDOW", "DecoderLayer", "MambaLayer", "decoder_init",
            "decoder_forward", "cache_spec", "init_cache", "decoder_prefill",
@@ -83,6 +86,20 @@ def _attn_layer_init(generator, cfg: ModelConfig, *, device=None):
     return params
 
 
+def _attn_layer_axes(cfg: ModelConfig):
+    """The reference's logical axes of ``_attn_layer_init``'s tree (one
+    layer: no leading ``"layers"``)."""
+    axes = {"ln1": NORM_AXES, "attn": MLA_AXES if cfg.mla else GQA_AXES,
+            "ln2": NORM_AXES}
+    if cfg.n_experts:
+        axes["moe"] = MOE_AXES
+    else:
+        axes["mlp"] = MLP_AXES
+    if cfg.sandwich_norm:
+        axes["ln1_post"] = axes["ln2_post"] = NORM_AXES
+    return axes
+
+
 def _mamba_layer_init(generator, cfg: ModelConfig, *, device=None):
     """One Mamba2 layer's parameter tree: ``ln`` and ``mamba``
     (``ssm.mamba2_init``'s names)."""
@@ -96,9 +113,11 @@ def _mamba_layer_init(generator, cfg: ModelConfig, *, device=None):
 class _Layer(nn.Module):
     """A layer holding the parameter tree ``param_tree(None, cfg)`` allocates,
     under the same names: ``layer["attn"]["wq"]`` reads as the
-    reference's ``p["attn"]["wq"]``."""
+    reference's ``p["attn"]["wq"]``.  ``param_axes(cfg)`` is the same tree
+    of the reference's logical axes."""
 
     param_tree = None
+    param_axes = None
 
     def __init__(self, cfg: ModelConfig, *, device=None):
         super().__init__()
@@ -117,6 +136,7 @@ class DecoderLayer(_Layer):
     """One attention (GQA or MLA) + MLP (or MoE) block."""
 
     param_tree = staticmethod(_attn_layer_init)
+    param_axes = staticmethod(_attn_layer_axes)
 
 
 class MambaLayer(_Layer):
@@ -124,6 +144,8 @@ class MambaLayer(_Layer):
     conv_x conv_b conv_c A_log dt_bias D norm w_out``)."""
 
     param_tree = staticmethod(_mamba_layer_init)
+    param_axes = staticmethod(lambda cfg: {"ln": NORM_AXES,
+                                           "mamba": MAMBA2_AXES})
 
 
 @torch.no_grad()
@@ -200,7 +222,8 @@ def _attn_layer_fwd(p, cfg: ModelConfig, x, window_limit, *,
 
     ff, aux = _ffn(p, cfg, rmsnorm(x, p["ln2"], cfg.rms_eps))
     if aux is None:
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        aux = replicate_like(torch.zeros((), dtype=torch.float32,
+                                         device=x.device), x)
     if cfg.sandwich_norm:
         ff = rmsnorm(ff, p["ln2_post"], cfg.rms_eps)
     x = x + ff
@@ -283,8 +306,9 @@ def decoder_forward(model, cfg: ModelConfig, tokens=None, *, x_embed=None,
     under ``torch.utils.checkpoint``.  The ssm family's SSD runs in
     chunks of ``cfg.ssd_chunk``.
     """
-    x = _embed_or(model, cfg, tokens, x_embed)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x = shard(_embed_or(model, cfg, tokens, x_embed), "batch", "seq", "embed")
+    aux = replicate_like(torch.zeros((), dtype=torch.float32,
+                                     device=x.device), x)
     if cfg.family == "ssm":
         layer = _remat(_mamba_layer_fwd, cfg)
         for p_l in model.layers:
@@ -407,7 +431,7 @@ def decoder_prefill(model, cfg: ModelConfig, tokens=None, *, x_embed=None,
                     cache_len: int, positions3=None, chunk=1024):
     """Prompt pass over ``tokens`` or ``x_embed`` (see
     ``decoder_forward``): returns (last-token logits, decode cache)."""
-    x = _embed_or(model, cfg, tokens, x_embed)
+    x = shard(_embed_or(model, cfg, tokens, x_embed), "batch", "seq", "embed")
     if cfg.family == "ssm":
         cache = init_cache(cfg, x.shape[0], cache_len, device=x.device)
         for i, p_l in enumerate(model.layers):
@@ -570,7 +594,8 @@ def hybrid_forward(model, cfg: ModelConfig, tokens, *, chunk=1024,
             x = mamba(p_l, cfg, x)
         x, _ = _attn_layer_fwd(shared, cfg, x, BIG_WINDOW, chunk=chunk)
     x = rmsnorm(x, model.final_norm, cfg.rms_eps)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = replicate_like(torch.zeros((), dtype=torch.float32,
+                                     device=x.device), x)
     if logits_slice == "hidden":
         return x, aux
     if logits_slice == "last":

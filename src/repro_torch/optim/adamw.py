@@ -23,6 +23,8 @@ from typing import Callable, Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from ..distributed.partitioning import is_dtensor, replicate_like
+
 __all__ = ["AdamWConfig", "adamw_init", "adamw_update", "global_norm",
            "clip_by_global_norm", "cosine_schedule", "linear_warmup_cosine"]
 
@@ -42,9 +44,14 @@ class AdamWConfig:
 
 def global_norm(tree: Tree) -> torch.Tensor:
     """sqrt of the sum over leaves of each leaf's float32 sum of squares
-    (a 0-d float32 tensor on the leaves' device)."""
-    sums = [x.float().square().sum() for x in tree.values()]
+    (a 0-d float32 tensor on the leaves' device; a DTensor leaf's sum is
+    the full tensor's, ``full_tensor``)."""
+    sums = [_full(x.float().square().sum()) for x in tree.values()]
     return torch.stack(sums).sum().sqrt()
+
+
+def _full(x: torch.Tensor) -> torch.Tensor:
+    return x.full_tensor() if is_dtensor(x) else x
 
 
 def _clip_scale(gn: torch.Tensor, max_norm: float) -> torch.Tensor:
@@ -88,7 +95,7 @@ def adamw_update(params: Tree, grads: Tree, state: Dict, cfg: AdamWConfig,
     mu_s, nu_s = state["mu"], state["nu"]
     for k, p in params.items():
         g = grads[k]
-        g = (g.float() * scale).to(g.dtype).float()      # clip_by_global_norm
+        g = (g.float() * replicate_like(scale, g)).to(g.dtype).float()  # clip
         mu, nu = mu_s[k], nu_s[k]
         mu.mul_(b1).add_(g * (1 - b1))                   # b1*mu + (1-b1)*g
         nu.mul_(b2).add_(g.square().mul_(1 - b2))        # b2*nu + (1-b2)*g^2

@@ -20,8 +20,18 @@ The format is the reference's, so either package restores the other's:
 ``restore(template)`` copies into the template's tensors IN PLACE, on
 their device (a ``Stacked`` leaf layer by layer); other leaves come back
 as host numpy arrays cast to the template's dtype.  Every key is checked
-before anything is written.  The reference's ``shardings`` argument waits
-for the port of ``distributed/*`` (ROADMAP queue 1, item 3(c)).
+before anything is written.
+
+On a mesh a checkpoint stays mesh-independent both ways: a DTensor leaf
+is written as its full tensor (``full_tensor``, a collective every rank
+joins), by rank 0 only, and a DTensor leaf of the template is restored
+by copying this rank's chunk of the full array into its local tensor.
+``restore(..., shardings=...)`` places the other leaves: each loaded
+array whose entry in ``shardings`` is a ``(mesh, placements)`` pair comes
+back as a DTensor on that mesh (the reference's ``device_put`` onto a
+sharding).  Under ``torch.distributed`` a blocking save and every restore
+end or start at a barrier, so no rank reads a checkpoint rank 0 is still
+writing.
 """
 from __future__ import annotations
 
@@ -33,7 +43,10 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from ..distributed.partitioning import is_dtensor
+from ..distributed.sharding import local_chunk
 from ..models.convert import Stacked
 from ..storage import atomic
 
@@ -72,9 +85,25 @@ def _unflatten_like(template, flat: Dict[str, Any], path=()):
     return type(template)(out[i] for i in range(len(template)))
 
 
+def _distributed() -> bool:
+    return dist.is_available() and dist.is_initialized() \
+        and dist.get_world_size() > 1
+
+
+def _rank() -> int:
+    return dist.get_rank() if _distributed() else 0
+
+
+def _barrier() -> None:
+    if _distributed():
+        dist.barrier()
+
+
 def _tensor_host(t: torch.Tensor):
     """A host copy of ``t`` as numpy (bfloat16 as 2-byte void), with the
-    dtype's name."""
+    dtype's name; a DTensor's full tensor."""
+    if is_dtensor(t):
+        t = t.full_tensor()
     t = t.detach().to("cpu", copy=True)
     name = str(t.dtype).replace("torch.", "")
     if t.dtype == torch.bfloat16:
@@ -102,15 +131,47 @@ def _as_tensor(v: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(v))
 
 
+def _copy_into(t: torch.Tensor, full: torch.Tensor) -> None:
+    """Copy the full array into ``t``; into a DTensor's local tensor, this
+    rank's chunk of it."""
+    if is_dtensor(t):
+        t.to_local().copy_(local_chunk(full, t.device_mesh, t.placements))
+    else:
+        t.copy_(full)
+
+
+def _placed(v: np.ndarray, sharding):
+    """The loaded array as a DTensor on ``sharding`` = (mesh, placements)."""
+    from torch.distributed.tensor import DTensor
+    mesh, place = sharding
+    full = _as_tensor(v, torch.bfloat16).to(mesh.device_type)
+    return DTensor.from_local(local_chunk(full, mesh, place), mesh,
+                              list(place), run_check=False,
+                              shape=full.shape, stride=full.stride())
+
+
+def _sharding_leaves(tree, path=()) -> Dict[str, Any]:
+    """{npz key: (mesh, placements)} of a ``shardings`` tree (nested dicts
+    whose leaves are the pairs)."""
+    if not isinstance(tree, dict):
+        return {_SEP.join(str(p) for p in path): tree}
+    out = {}
+    for k, v in tree.items():
+        out.update(_sharding_leaves(v, path + (k,)))
+    return out
+
+
 @torch.no_grad()
-def _restore_leaf(t, v: np.ndarray):
+def _restore_leaf(t, v: np.ndarray, sharding=None):
     if isinstance(t, Stacked):
         for i, ti in enumerate(t):
-            ti.copy_(_as_tensor(v[i], ti.dtype))
+            _copy_into(ti, _as_tensor(v[i], ti.dtype))
         return t
     if isinstance(t, torch.Tensor):
-        t.copy_(_as_tensor(v, t.dtype))
+        _copy_into(t, _as_tensor(v, t.dtype))
         return t
+    if sharding is not None:
+        return _placed(_restore_leaf(t, v), sharding)
     if not hasattr(t, "dtype"):
         return np.asarray(v)
     want = np.dtype(t.dtype)
@@ -140,15 +201,24 @@ class Checkpointer:
 
     # ------------------------------------------------------------------ #
     def save(self, step: int, tree, *, extra: Optional[dict] = None) -> Path:
-        """Blocking atomic save (flushes any in-flight async save first)."""
+        """Blocking atomic save (flushes any in-flight async save first).
+        Under ``torch.distributed`` every rank calls it, rank 0 writes."""
         self.wait()
-        return self._write(step, self._host_flat(tree), extra or {})
+        flat = self._host_flat(tree)
+        path = self.dir / f"step_{step:08d}"
+        if _rank() == 0:
+            path = self._write(step, flat, extra or {})
+        _barrier()
+        return path
 
     def save_async(self, step: int, tree, *,
                    extra: Optional[dict] = None) -> None:
-        """Device->host copy now; disk write on a background thread."""
+        """Device->host copy now; disk write on a background thread (rank
+        0's only)."""
         self.wait()  # one in-flight save at a time
         flat = self._host_flat(tree)
+        if _rank() != 0:
+            return
 
         def work():
             try:
@@ -189,11 +259,17 @@ class Checkpointer:
         return final
 
     # ------------------------------------------------------------------ #
-    def restore(self, template, step: Optional[int] = None) -> Any:
+    def restore(self, template, step: Optional[int] = None,
+                shardings=None) -> Any:
         """Restore into the structure of ``template``: its tensors (and
-        ``Stacked`` leaves) are overwritten in place and returned; other
-        leaves come back as host numpy cast to the template's dtype.  Keys
-        of the checkpoint the template does not name are left unread."""
+        ``Stacked`` leaves; a DTensor's local chunk) are overwritten in
+        place and returned; other leaves come back as host numpy cast to
+        the template's dtype, or, where ``shardings`` (a tree like the
+        template's) holds a ``(mesh, placements)`` pair, as a DTensor on
+        it.  Keys of the checkpoint the template does not name are left
+        unread."""
+        self.wait()
+        _barrier()
         step = step if step is not None else latest_step(self.dir)
         if step is None:
             raise FileNotFoundError(f"no checkpoint under {self.dir}")
@@ -210,7 +286,9 @@ class Checkpointer:
                         and arrays[key].shape != shape):
                     raise ValueError(f"'{key}': shape {arrays[key].shape} "
                                      f"in the checkpoint, {shape} here")
-        out = {k: _restore_leaf(t, arrays.pop(k)) for k, t in want.items()}
+        places = _sharding_leaves(shardings) if shardings is not None else {}
+        out = {k: _restore_leaf(t, arrays.pop(k), places.get(k))
+               for k, t in want.items()}
         return _unflatten_like(template, out)
 
     def manifest(self, step: Optional[int] = None) -> dict:

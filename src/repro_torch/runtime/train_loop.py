@@ -6,6 +6,11 @@ The port of ``repro.runtime.train_loop``.  The model's parameters and the
 AdamW state are updated in place by the step; a checkpoint holds them in
 the reference's layout (``{"params": ..., "opt": {"mu", "nu", "step"}}``
 with stacked layers), so either package resumes from the other's.
+
+``train(..., mesh=mesh)`` runs under ``use_rules(rules)``: after the
+init the model is placed on the mesh (``place_for_training``: DTensor
+parameters, ZeRO-1 AdamW state), each rank is fed the global batch, and
+the checkpoints hold full tensors, so a run resumes on any mesh.
 """
 from __future__ import annotations
 
@@ -15,6 +20,8 @@ from typing import Any, Callable, Dict, Iterator, List, Optional
 
 import numpy as np
 
+from ..distributed.partitioning import get_rules
+from ..distributed.sharding import place_for_training
 from ..models.common import make_generator
 from ..models.convert import reference_tree
 from ..models.model import Model
@@ -64,15 +71,22 @@ def train(
     *,
     failure_injector: Optional[FailureInjector] = None,
     log_fn: Callable[[str], None] = print,
+    mesh=None,
 ) -> Dict[str, Any]:
     """Returns {"params", "opt_state", "history", "stragglers", "restarts",
-    "final_step"}; ``params`` is the model's named parameters."""
+    "final_step"}; ``params`` is the model's named parameters.  With a
+    ``mesh`` the active rules place the model and the state on it."""
     lr_sched = linear_warmup_cosine(opt_cfg.lr, loop.warmup, loop.steps)
-    step_fn = make_train_step(model, opt_cfg, lr_sched)
 
     ckpt = Checkpointer(loop.ckpt_dir, keep=loop.keep) if loop.ckpt_dir else None
     model.init(make_generator(loop.seed, model.device))
-    opt_state = adamw_init(model)
+    if mesh is None:
+        opt_state = adamw_init(model)
+    else:
+        if get_rules() is None:
+            raise RuntimeError("train on a mesh runs under use_rules(...)")
+        opt_state = place_for_training(model, mesh, get_rules())
+    step_fn = make_train_step(model, opt_cfg, lr_sched)   # the placed leaves
     start_step = 0
 
     if ckpt and loop.resume and latest_step(loop.ckpt_dir) is not None:

@@ -968,3 +968,56 @@ def test_curation_on_cuda_launches_fused_scan_and_selects_as_numpy(cuda):
         assert np.array_equal(got, dev.select_reference(q))
     cur, want = dev.curriculum(queries), host.curriculum(queries)
     assert all(np.array_equal(cur[i], want[i]) for i in want)
+
+
+def test_mesh_train_step_on_cuda_equals_the_plain_step(cuda, monkeypatch,
+                                                       tmp_path):
+    """h2o-danube-3-4b cut to 2 layers at a width of 256 on a 1x1 mesh of
+    one NCCL rank: the parameters placed as DTensors (the same storage),
+    one train step under the arch's rules equals the plain step from the
+    same weights (float32 activations: loss and every updated parameter
+    within 1e-5)."""
+    import torch.distributed as dist
+    import repro_torch.models.common as p_common
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.partitioning import use_rules
+    from repro_torch.distributed.sharding import (place_for_training,
+                                                  rules_for_arch)
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.train import reduced
+    from repro_torch.models import build_model
+    from repro_torch.models.common import make_generator
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.runtime.steps import make_train_step
+    monkeypatch.setattr(p_common, "DTYPE", torch.float32)
+    cfg = reduced(get_config("h2o-danube-3-4b"), 2, 256)
+    rng = np.random.default_rng(29)
+    toks = rng.integers(0, cfg.vocab_size, (4, 65)).astype(np.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    weights = build_model(cfg, device="cuda").init(
+        make_generator(0, "cuda")).state_dict()
+    opt = AdamWConfig(lr=1e-3, eps=1e-3)
+    plain = build_model(cfg, device="cuda")
+    plain.load_state_dict(weights)
+    want = float(make_train_step(plain, opt)(adamw_init(plain),
+                                             batch)["loss"])
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_local_mesh(1, 1)
+        rules = rules_for_arch(cfg, mesh)
+        model = build_model(cfg, device="cuda")
+        model.load_state_dict(weights)
+        ptrs = [p.data_ptr() for p in model.parameters()]
+        state = place_for_training(model, mesh, rules)
+        assert [p.to_local().data_ptr() for p in model.parameters()] == ptrs
+        with use_rules(rules):
+            got = float(make_train_step(model, opt)(state, batch)["loss"])
+        np.testing.assert_allclose(got, want, rtol=1e-5)
+        own = dict(plain.named_parameters())
+        for n, p in model.named_parameters():
+            np.testing.assert_allclose(p.to_local().detach().cpu().numpy(),
+                                       own[n].detach().cpu().numpy(),
+                                       rtol=0, atol=1e-5, err_msg=n)
+    finally:
+        dist.destroy_process_group()

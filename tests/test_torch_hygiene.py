@@ -39,7 +39,10 @@ def test_every_module_imports_without_jax_or_repro():
               "models.convert", "runtime.router", "runtime.serve_loop",
               "launch.serve", "optim", "optim.adamw", "runtime.steps",
               "runtime.checkpoint", "runtime.train_loop", "data.pipeline",
-              "data.curation", "launch.train"):
+              "data.curation", "launch.train", "distributed",
+              "distributed.partitioning", "distributed.sharding",
+              "distributed.compression", "distributed.pipeline",
+              "launch.mesh"):
         assert f"repro_torch.{m}" in mods, m
     code = textwrap.dedent(f"""
         import importlib, sys
@@ -135,7 +138,7 @@ def test_chip_smoke_rehearsal_and_no_card_exit():
     assert "[main]" in reh.stdout and "[segments]" in reh.stdout
     assert "[ops]" in reh.stdout and "[background]" in reh.stdout
     for phase in ("[cache]", "[sharded]", "[durable]", "[replicated]",
-                  "[lm_serve]", "[lm_steps]", "[lm_train]"):
+                  "[lm_serve]", "[lm_steps]", "[lm_train]", "[mesh]"):
         assert phase in reh.stdout, phase
     assert "pinned epoch" in reh.stdout
     assert '"ok"' not in reh.stdout

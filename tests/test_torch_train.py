@@ -633,10 +633,12 @@ def test_train_launcher_then_serve_restores_it(tmp_path, capsys):
 
 
 def test_train_launcher_refuses_a_mesh(capsys):
+    """A mesh outside a job of as many ranks (here one process) is
+    refused with the torchrun command that runs it."""
     from repro_torch.launch import train as launch
     with pytest.raises(SystemExit):
         launch.main(SMALL + ["--mesh-data", "2"])
-    assert "3(c)" in capsys.readouterr().err
+    assert "torchrun --nproc-per-node 2" in capsys.readouterr().err
 
 
 def test_train_launcher_default_arch_is_not_ported(tmp_path, monkeypatch,
