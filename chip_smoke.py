@@ -52,6 +52,15 @@ Phases, one line of output each:
             defaults (mamba2-130m, full size, --curate) to step 20,
             resumed to 30, served from its checkpoint (the phase's
             function says more);
+  mesh      the distribution layer on a 1x1 mesh (``mesh_phase``);
+  dryrun    the dry run (launch/dryrun.py) beside the card: the mesh
+            phase's h2o-danube-3-4b train step (8 x 256, full depth)
+            counted on fake tensors (a subprocess started at the top of the
+            run, one fake rank) and on the card by the same counter, the
+            FLOPs equal; the predicted peak beside max_memory_allocated, the
+            roofline bound beside the step's ms; and the full train_4k cell
+            on the 256-rank fake mesh (a subprocess since the top of the
+            run) with status ok;
   main      the serving path at real size: 10M airline rows, 512 knn range
             queries through QueryServer in 64-query waves, inserts and
             deletes between waves, a compaction, one more wave, then one
@@ -108,6 +117,7 @@ import argparse
 import contextlib
 import gc
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -3425,6 +3435,214 @@ def mesh_phase(torch, dev, card_line):
             store.unlink()
 
 
+# the dryrun phase: the dry run's counter (launch/dryrun.py) on the mesh
+# phase's h2o train step, fake and real, and one full dry-run cell; the
+# two dry runs are subprocesses started at the top of the run (fake
+# tensors on the host, no card), joined here.  The rehearsal counts a
+# 2-layer, width-64 step in process and runs no cell.
+DRYRUN_STEP = dict(batch=8, seq=256)
+DRYRUN_REHEARSE = dict(batch=2, seq=32)
+DRYRUN_LIMIT_S = 900            # both subprocesses, from the top of the run
+DRYRUN_OUT = ROOT / "build" / "dryrun_smoke"
+
+
+def start_dryrun():
+    """Start the two dry-run subprocesses (the card's step on one fake
+    rank, and the train_4k cell on the 256-rank fake mesh); returns
+    {name: (process, log path)} and the start time."""
+    shutil.rmtree(DRYRUN_OUT, ignore_errors=True)
+    DRYRUN_OUT.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
+    base = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+            LM_ARCH, "--shape", "train_4k", "--out", str(DRYRUN_OUT)]
+    cmds = {"card": base + ["--mesh", "local", "--batch",
+                            str(DRYRUN_STEP["batch"]), "--seq",
+                            str(DRYRUN_STEP["seq"]), "--microbatches", "1",
+                            "--fsdp", "0", "--sp", "0", "--probe", "0",
+                            "--tag", "card"],
+            "cell": base + ["--mesh", "single"]}
+    procs = {}
+    for name, cmd in cmds.items():
+        log = DRYRUN_OUT / f"{name}.log"
+        with open(log, "w") as f:
+            procs[name] = (subprocess.Popen(cmd, stdout=f,
+                                            stderr=subprocess.STDOUT,
+                                            cwd=ROOT, env=env), log)
+    return procs, time.perf_counter()
+
+
+def stop_dryrun(dry):
+    """Kill whatever dry-run subprocess is still running."""
+    if dry is None:
+        return
+    for proc, _ in dry[0].values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def join_dryrun(dry):
+    """Wait for both subprocesses (until ``DRYRUN_LIMIT_S`` after their
+    start); returns {name: the cell's JSON} and the seconds waited here.
+    A subprocess that fails or runs out of time fails the phase."""
+    procs, t_start = dry
+    t0 = time.perf_counter()
+    cells = {}
+    for name, (proc, log) in procs.items():
+        left = DRYRUN_LIMIT_S - (time.perf_counter() - t_start)
+        try:
+            rc = proc.wait(timeout=max(left, 1.0))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            raise AssertionError(f"the dry run's {name} subprocess ran past "
+                                 f"{DRYRUN_LIMIT_S} s")
+        tag = "card" if name == "card" else "baseline"
+        mesh = "local" if name == "card" else "single"
+        path = DRYRUN_OUT / f"{LM_ARCH}__train_4k__{mesh}__{tag}.json"
+        if rc != 0 or not path.exists():
+            raise AssertionError(f"the dry run's {name} subprocess exited "
+                                 f"{rc}: {log.read_text()[-2000:]}")
+        cells[name] = json.loads(path.read_text())
+        if cells[name]["status"] != "ok":
+            raise AssertionError(f"dry-run cell {name}: "
+                                 f"{cells[name]['status']}")
+    return cells, time.perf_counter() - t0
+
+
+def dryrun_phase(torch, dev, card_line, dry):
+    """The dry run beside the card, in two parts.
+
+    (a) The mesh phase's h2o-danube-3-4b train step (8 x 256, full depth,
+        float32 masters, remat, AdamW, one microbatch) on a 1x1 mesh,
+        counted by ``launch.dryrun.StepCounter`` twice: on fake tensors
+        (the subprocess's ``--mesh local`` cell) and on the card's real
+        step (one NCCL rank, the model placed by the same rules): the
+        FLOPs must be equal (the same program).  Printed beside them, with
+        no gate: the predicted peak and ``torch.cuda.max_memory_allocated``
+        of the counted step; the roofline bound and the step's ms
+        (uncounted) and ``train_bound_ms``.
+    (b) ``python -m repro_torch.launch.dryrun --arch h2o-danube-3-4b
+        --shape train_4k --mesh single`` (its own fake group of 256
+        ranks): status ok; its report row.
+
+    The rehearsal counts a 2-layer width-64 step fake and real in process
+    (a fake group, then a gloo group) and runs no cell."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.distributed.partitioning import use_rules
+    from repro_torch.distributed.sharding import rules_for_arch
+    from repro_torch.launch import dryrun, report
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.roofline import H100_SXM, roofline
+    from repro_torch.launch.train import reduced
+    from repro_torch.models import build_model
+    from repro_torch.models.common import make_generator
+
+    t_phase = time.perf_counter()
+    cuda = dev != "cpu"
+    size = DRYRUN_STEP if cuda else DRYRUN_REHEARSE
+    cfg = get_config(LM_ARCH) if cuda else reduced(get_config(LM_ARCH), 2, 64)
+    shape = dataclasses.replace(SHAPES["train_4k"],
+                                global_batch=size["batch"],
+                                seq_len=size["seq"])
+    kw = dict(fsdp=False, microbatches=1)
+    if cuda:
+        cells, waited = join_dryrun(dry)
+        fake = cells["card"]
+        fake_flops = fake["cost"]["flops_per_device"]
+        fake_mem = fake["memory"]["peak_bytes_per_device"]
+        fake_s = fake["compile_s"]
+    else:
+        cells, waited = {}, 0.0
+        with dryrun.fake_group(1):
+            mesh = make_local_mesh(1, 1, device="cpu")
+            got = dryrun.count_cell(cfg, shape, mesh, rules_for_arch(
+                cfg, mesh, shape), **kw)
+        fake_flops = got["cost"]["flops"]
+        fake_mem = got["memory"]["peak_bytes_per_device"]
+        fake_s = got["seconds"]
+        fake = {"roofline": roofline(got["cost"]["flops"],
+                                     got["cost"]["bytes"], 0.0),
+                "cost": {"bytes_per_device": got["cost"]["bytes"]}}
+
+    store = ROOT / "build" / "dryrun_store"
+    if store.exists():
+        store.unlink()
+    if cuda:
+        torch.cuda.set_device(0)
+    dist.init_process_group("nccl" if cuda else "gloo",
+                            init_method=f"file://{store}", world_size=1,
+                            rank=0)
+    try:
+        mesh = make_local_mesh(1, 1, device="cuda" if cuda else "cpu")
+        rules = rules_for_arch(cfg, mesh, shape)
+        model = build_model(cfg, device=dev).init(
+            make_generator(LM_SEED, dev))
+        with use_rules(rules):
+            run, inputs, updated = dryrun.cell_step(model, cfg, shape, mesh,
+                                                    rules, **kw)
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            run()                                      # warm
+            sync(torch, dev)
+            first_ms = (time.perf_counter() - t0) * 1e3
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            c, memory = dryrun.count_step(run, inputs, updated)
+            sync(torch, dev)
+            counted_ms = (time.perf_counter() - t0) * 1e3
+            peak = torch.cuda.max_memory_allocated() if cuda else 0
+            step_ms = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                run()
+                sync(torch, dev)
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+        del run, inputs, updated, model
+    finally:
+        dist.destroy_process_group()
+        if store.exists():
+            store.unlink()
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    if c.flops != fake_flops:
+        raise AssertionError(f"the dry run counts {fake_flops:.6e} FLOPs on "
+                             f"fake tensors, {c.flops:.6e} on the card")
+    n_params = build_model(cfg, device="meta").param_count()
+    bound, _, _ = train_bound_ms(n_params, size["batch"] * size["seq"])
+    r = fake["roofline"]
+    total = torch.cuda.get_device_properties(0).total_memory if cuda else 0
+    say("dryrun", f"{cfg.name} train step ({size['batch']} x {size['seq']},"
+        f" {cfg.n_layers} layers, 1x1 mesh, float32 masters, remat "
+        f"{cfg.remat}, AdamW) counted on fake tensors in {fake_s:.1f} s and "
+        f"on the {'card' if cuda else 'host'}: {fake_flops:.6e} FLOPs "
+        f"both (difference {c.flops - fake_flops:.3g}); bytes moved "
+        f"{c.bytes:.6e} real vs {fake['cost']['bytes_per_device']:.6e} "
+        f"fake; predicted peak {fake_mem / 2**30:.2f} GiB, counted live "
+        f"peak on the card {memory['peak_bytes_per_device'] / 2**30:.2f} "
+        f"GiB, max_memory_allocated {peak / 2**30:.2f} GiB; roofline "
+        f"bound {r['step_time_bound_s'] * 1e3:.1f} ms (compute "
+        f"{r['compute_s'] * 1e3:.1f}, memory {r['memory_s'] * 1e3:.1f}, "
+        f"{r['dominant']}; H100 SXM {H100_SXM['peak_flops']:.3g} FLOP/s, "
+        f"{H100_SXM['hbm_bw']:.3g} B/s) vs the measured step "
+        f"{step_ms[0]:.1f} and {step_ms[1]:.1f} ms (first {first_ms:.1f}, "
+        f"counted {counted_ms:.1f}) and train_bound_ms {bound:.1f} ms; "
+        f"report.HBM {report.HBM} B, the card's total_memory {total} B "
+        f"({card_line})")
+    if cuda:
+        cell = cells["cell"]
+        say("dryrun", f"dry-run cell {LM_ARCH} train_4k single (256 fake "
+            f"ranks): status {cell['status']}, traced in "
+            f"{cell['compile_s']} s, {cell['cost']['method']}; "
+            f"{report.fmt_row(cell)}; both subprocesses joined "
+            f"{waited:.1f} s after the mesh phase")
+    say("dryrun", f"phase {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rehearse", action="store_true",
@@ -3452,6 +3670,7 @@ def main(argv=None) -> int:
             lm_steps_phase(torch, "cpu", "no card", arch)
         lm_train_phase(torch, "cpu", "no card")
         mesh_phase(torch, "cpu", "no card")
+        dryrun_phase(torch, "cpu", "no card", None)
         run = main_phase(torch, "cpu", REHEARSE)
         segs = segments_phase(torch, run, REHEARSE, "cpu")
         ops_phase(torch, run, segs, REHEARSE, "cpu")
@@ -3467,13 +3686,22 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
         return 2
-    cfg = FULL
     t_start = time.perf_counter()
+    card_line, kind, count = card_phase(torch)
+    dry = start_dryrun()
+    try:
+        return card_run(torch, card_line, kind, count, dry, t_start)
+    finally:
+        stop_dryrun(dry)
+
+
+def card_run(torch, card_line, kind, count, dry, t_start) -> int:
+    """Every phase after ``card`` on the card, then the result lines."""
+    cfg = FULL
     marks = [("start", t_start)]
 
     def mark(phase):
         marks.append((phase, time.perf_counter()))
-    card_line, kind, count = card_phase(torch)
     build_phase()
     small_errs = kernel_phase(torch, "cuda")
     mark("card, build, kernel")
@@ -3491,6 +3719,9 @@ def main(argv=None) -> int:
     mesh_phase(torch, "cuda", card_line)
     release_lm(torch, "mesh")
     mark("mesh")
+    dryrun_phase(torch, "cuda", card_line, dry)
+    release_lm(torch, "dryrun")
+    mark("dryrun")
     run = main_phase(torch, "cuda", cfg)
     mark("main")
     segs = segments_phase(torch, run, cfg, "cuda")

@@ -39,6 +39,11 @@ __all__ = [
     "replicate_like",
     "replicated",
     "shard",
+    "local_offsets",
+    "placed_zeros",
+    "set_at",
+    "all_reduce_over",
+    "replicated_dims",
 ]
 
 MeshAxes = Union[None, str, Tuple[str, ...]]
@@ -209,8 +214,128 @@ def replicated(x: torch.Tensor) -> torch.Tensor:
     return x.redistribute(mesh, [Replicate()] * mesh.ndim).contiguous()
 
 
+def local_offsets(x) -> Tuple[int, ...]:
+    """The global index of the first element of a DTensor's local block,
+    a dim each (zeros for a plain tensor).  ``Shard`` chunks as
+    ``torch.chunk`` does, mesh dim after mesh dim; computed on the host,
+    with no tensor (under a ``FakeTensorMode`` a tensor's values are
+    unknown)."""
+    if not is_dtensor(x):
+        return (0,) * x.ndim
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.placement_types import _StridedShard
+    mesh = x.device_mesh
+    size, off = list(x.shape), [0] * x.ndim
+    for i, p in enumerate(x.placements):
+        if isinstance(p, _StridedShard):
+            raise ValueError(f"no local offsets of {x.placements}")
+        if isinstance(p, Shard):
+            n, r = mesh.size(i), mesh.get_local_rank(i)
+            chunk = -(-size[p.dim] // n)
+            start = min(r * chunk, size[p.dim])
+            off[p.dim] += start
+            size[p.dim] = max(min(chunk, size[p.dim] - start), 0)
+    return tuple(off)
+
+
+def placed_zeros(shape, dtype, like: torch.Tensor,
+                 logical_axes: Sequence[Optional[str]]) -> torch.Tensor:
+    """Zeros of ``shape``: a plain tensor on ``like``'s device, or, when
+    ``like`` is a DTensor and rules are active, a DTensor on its mesh
+    placed by ``logical_axes``, each rank allocating only its block (a
+    decode cache made by prefill on a mesh)."""
+    rules = get_rules()
+    if not is_dtensor(like) or rules is None:
+        return torch.zeros(shape, dtype=dtype, device=like.device)
+    from torch.distributed.tensor import zeros
+    mesh = like.device_mesh
+    return zeros(tuple(shape), dtype=dtype, device_mesh=mesh,
+                 placements=placements(logical_to_spec(logical_axes, rules),
+                                       mesh))
+
+
+def set_at(dst: torch.Tensor, index: Tuple, value: torch.Tensor):
+    """``dst[index] = value`` in place; returns ``dst``.
+
+    ``index`` holds an int or a step-1 slice for each leading dim of
+    ``dst`` (the rest are whole).  A DTensor ``dst`` keeps its placement
+    and its storage: ``value`` is redistributed so that every rank holds
+    what falls in its block (sharded as ``dst`` along the dims written
+    whole, replicated along the dims written in part: the new token of a
+    cache whose length is sharded), and each rank writes its part into
+    its local tensor; a rank whose block the index misses writes
+    nothing.  The cache is never gathered."""
+    if not is_dtensor(dst):
+        dst[tuple(index)] = value.to(dst.dtype)
+        return dst
+    from torch.distributed.tensor import Replicate, Shard
+    index = tuple(index) + (slice(None),) * (dst.ndim - len(index))
+    vdim, bounds, j = [], [], 0
+    for e, size in zip(index, dst.shape):
+        if isinstance(e, slice):
+            lo, hi, step = e.indices(size)
+            if step != 1:
+                raise ValueError(f"set_at takes step-1 slices, not {e}")
+            vdim.append(j)
+            bounds.append((lo, hi))
+            j += 1
+        else:
+            e = int(e) + (size if int(e) < 0 else 0)
+            vdim.append(None)
+            bounds.append((e, e + 1))
+    whole = [vdim[d] is not None and bounds[d] == (0, dst.shape[d])
+             for d in range(dst.ndim)]
+    mesh = dst.device_mesh
+    vplace = [Shard(vdim[p.dim]) if isinstance(p, Shard) and whole[p.dim]
+              else Replicate() for p in dst.placements]
+    local = dst.to_local()
+    off = local_offsets(dst)
+    v = replicate_like(value, dst).redistribute(mesh, vplace).to_local()
+    dst_idx, v_idx = [], []
+    for d, (lo, hi) in enumerate(bounds):
+        a, b = max(lo, off[d]), min(hi, off[d] + local.shape[d])
+        if a >= b:
+            return dst                        # not this rank's block
+        if vdim[d] is None:
+            dst_idx.append(a - off[d])
+        else:
+            dst_idx.append(slice(a - off[d], b - off[d]))
+            v_idx.append(slice(None) if whole[d] else slice(a - lo, b - lo))
+    local[tuple(dst_idx)] = v[tuple(v_idx)].to(local.dtype)
+    return dst
+
+
+def all_reduce_over(x: torch.Tensor, op: str, mesh, dims) -> torch.Tensor:
+    """A rank's plain tensor ``x`` reduced (``"sum"`` or ``"max"``) over
+    the ranks of the mesh dims ``dims`` (an all-reduce a dim); the same
+    tensor when ``dims`` is empty."""
+    if not dims:
+        return x
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    place = [Partial(op) if i in dims else Replicate()
+             for i in range(mesh.ndim)]
+    return DTensor.from_local(x, mesh, place, run_check=False).redistribute(
+        mesh, [Replicate()] * mesh.ndim).to_local()
+
+
+def replicated_dims(x: torch.Tensor, dims) -> torch.Tensor:
+    """A DTensor ``x`` gathered along the tensor dims ``dims`` (every
+    other placement kept); a plain tensor as it is."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate, Shard
+    dims = {d % x.ndim for d in dims}
+    place = [Replicate() if isinstance(p, Shard) and p.dim in dims else p
+             for p in x.placements]
+    if place == list(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, place)
+
+
 def shard(x: torch.Tensor, *logical_axes: Optional[str]) -> torch.Tensor:
-    """Constrain ``x`` to the placement its logical axes imply.
+    """Constrain ``x`` to the placement its logical axes imply; a dim
+    shorter than the ranks that would shard it stays replicated (a decode
+    token's length-1 sequence under context-parallel rules).
 
     The identity when no rules are active (single-device runs), so model
     code stays the same everywhere.  Under rules ``x`` must be a DTensor
@@ -225,7 +350,10 @@ def shard(x: torch.Tensor, *logical_axes: Optional[str]) -> torch.Tensor:
                         f"batch on the mesh first)")
     spec = logical_to_spec(logical_axes, rules)
     mesh = x.device_mesh
-    want = placements(spec, mesh)
+    from torch.distributed.tensor import Replicate, Shard
+    want = [Replicate() if isinstance(p, Shard)
+            and x.shape[p.dim] < mesh.size(i) else p
+            for i, p in enumerate(placements(spec, mesh))]
     if list(x.placements) == want:
         return x
     return x.redistribute(mesh, want)

@@ -11,7 +11,12 @@ activation-dtype operands, as the reference's
 bfloat16 embeds in float32) before each product, and the probabilities
 are cast back to the value dtype before the PV product.  Masks use
 ``NEG = -1e30``, not ``-inf``.  On a mesh the attention core runs on
-each rank's local block (``_sharded_attention``).
+each rank's local block (``_sharded_attention``), and so does decode
+over a placed cache (``_sharded_decode_attention``, ``mla_decode``):
+where the cache's length is sharded, each rank attends over its own slots
+and the partial softmax is combined (an all-reduce of the max, then of
+the sum and the context).  Decode writes the new token's slot in place
+into each rank's block (``partitioning.set_at``).
 """
 from __future__ import annotations
 
@@ -20,7 +25,9 @@ from typing import Mapping, Optional, Tuple
 
 import torch
 
-from ..distributed.partitioning import is_dtensor, shard
+from ..distributed.partitioning import (all_reduce_over, is_dtensor,
+                                        local_offsets, replicate_like, set_at,
+                                        shard)
 from .common import (_w, dense_init, mrope_tables, rope_tables, rotate,
                      softcap)
 
@@ -109,36 +116,54 @@ def chunked_attention(
 
 def _sharded_attention(q, k, v, *, q_offset: int = 0, **kw):
     """``chunked_attention`` of DTensors, each rank on its local block:
-    attention is independent across batch rows and (GQA-aligned) heads,
-    so a rank keeps q's batch and head shards, takes k/v alike, and with
-    q's sequence sharded (context parallel, "attn_seq") the whole k/v
-    sequence and an offset for its causal mask.  Any other placement is
-    gathered first.  (Run through DTensor, the score einsums merge the
-    data-sharded batch with the model-sharded heads into one bmm batch
-    dim, a ``_StridedShard`` whose redistribution plans cost seconds
-    each.)"""
-    from torch.distributed.tensor import DTensor, Replicate, Shard
+    attention is independent across batch rows and GQA groups, so a rank
+    keeps q's batch and head shards.  k/v follow where their kv heads are
+    sharded alike; where they are not, each rank takes from the whole k/v
+    the kv heads its q heads read (q head ``j`` reads kv head
+    ``j // (H/K)``; a rank's q heads must cover whole groups or lie in
+    one).  With q's sequence sharded (context parallel, "attn_seq") a
+    rank takes the whole k/v sequence and an offset for its causal mask.
+    Any other placement is gathered first.  Where a rank reads only part
+    of a replicated k/v, the gradient it leaves there is a partial sum
+    (``grad_placements``).  (Run through DTensor, the score einsums merge
+    the data-sharded batch with the model-sharded heads into one bmm
+    batch dim, a ``_StridedShard`` whose redistribution plans cost
+    seconds each.)"""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     mesh = q.device_mesh
-    qp, kp = [], []
+    h, kh = q.shape[2], k.shape[2]
+    rep = h // kh
+    qp, kp, grad = [], [], []
     for i, p in enumerate(q.placements):
-        if p == Shard(0):
+        n = mesh.size(i)
+        if p == Shard(0) or (p == Shard(2) and k.placements[i] == Shard(2)):
             qp.append(p)
             kp.append(p)
-        elif p == Shard(2) and k.placements[i] == Shard(2):
+            grad.append(p)
+        elif p == Shard(2) and h % n == 0 and (
+                (h // n) % rep == 0 or rep % (h // n) == 0):
             qp.append(p)
-            kp.append(p)
+            kp.append(Replicate())
+            grad.append(Partial())
         elif p == Shard(1):
-            n, r = mesh.size(i), mesh.get_local_rank(i)
+            r = mesh.get_local_rank(i)
             q_offset += min(r * -(-q.shape[1] // n), q.shape[1])
             qp.append(p)
             kp.append(Replicate())
+            grad.append(Partial())
         else:
             qp.append(Replicate())
             kp.append(Replicate())
+            grad.append(Replicate())
     q, k, v = (q.redistribute(mesh, qp), k.redistribute(mesh, kp),
                v.redistribute(mesh, kp))
-    out = chunked_attention(q.to_local(), k.to_local(), v.to_local(),
-                            q_offset=q_offset, **kw)
+    ql = q.to_local()
+    kl, vl = (t.to_local(grad_placements=grad) for t in (k, v))
+    if ql.shape[2] < h and kl.shape[2] == kh:
+        lo = local_offsets(q)[2]
+        heads = slice(lo // rep, (lo + ql.shape[2] - 1) // rep + 1)
+        kl, vl = kl[:, :, heads], vl[:, :, heads]
+    out = chunked_attention(ql, kl, vl, q_offset=q_offset, **kw)
     return DTensor.from_local(out, mesh, qp, run_check=False)
 
 
@@ -151,7 +176,86 @@ def decode_attention(
     attn_softcap: Optional[float] = None,
     scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Single-token attention over a (possibly ring) KV cache."""
+    """Single-token attention over a (possibly ring) KV cache.  A placed
+    (DTensor) cache runs as ``_sharded_decode_attention``."""
+    if is_dtensor(k_cache):
+        return _sharded_decode_attention(q, k_cache, v_cache, valid_mask,
+                                         attn_softcap=attn_softcap,
+                                         scale=scale)
+    return _decode_core(q, k_cache, v_cache, valid_mask,
+                        attn_softcap=attn_softcap, scale=scale)
+
+
+def _decode_blocks(q, cache, head_dim: Optional[int]):
+    """How a decode query meets a placed cache (B, T, ...): (q's
+    placements, the mesh dims that shard the cache's length T).  On each
+    mesh dim q follows the cache's batch shard, and its heads shard where
+    the cache's heads are sharded alike (``head_dim``: the cache's head
+    dim, 2 for GQA) or where the cache has no heads (MLA's latent cache,
+    ``head_dim`` None: q's own head shard is kept); else q is replicated.
+    Any other cache placement raises: the cache is never gathered."""
+    from torch.distributed.tensor import Replicate, Shard
+    qp, kv_dims = [], []
+    q_place = q.placements if is_dtensor(q) else \
+        [Replicate()] * cache.device_mesh.ndim
+    for i, p in enumerate(cache.placements):
+        if p == Shard(0):
+            qp.append(p)
+        elif p == Shard(1):
+            qp.append(Replicate())
+            kv_dims.append(i)
+        elif head_dim is not None and p == Shard(head_dim):
+            qp.append(Shard(2))
+        elif p.is_replicate():
+            own = q_place[i]
+            qp.append(own if head_dim is None and own == Shard(1)
+                      else Replicate())
+        else:
+            raise ValueError(f"decode over a cache placed {cache.placements}"
+                             f" is not supported")
+    return qp, kv_dims
+
+
+def _local_valid(valid, cache) -> torch.Tensor:
+    """This rank's (B, T) block of the slot mask ``valid`` (a plain or
+    replicated tensor of the cache's global batch and length)."""
+    if is_dtensor(valid):
+        valid = valid.to_local()
+    off, local = local_offsets(cache), cache.to_local().shape
+    return valid[off[0]:off[0] + local[0], off[1]:off[1] + local[1]]
+
+
+def _softmax_pv(s, pv, mesh, kv_dims):
+    """``pv(softmax(s))`` over the last dim of the scores ``s``; where the
+    cache's length is sharded (``kv_dims``), ``s`` holds this rank's slots
+    and the softmax is combined across ranks: ``pv(exp(s - max)) /
+    sum(exp(s - max))`` with the max and both sums all-reduced."""
+    if not kv_dims:
+        return pv(torch.softmax(s, dim=-1))
+    m = (s.amax(dim=-1) if s.shape[-1]               # a rank may hold no
+         else s.new_full(s.shape[:-1], NEG))          # slot of a short cache
+    m = all_reduce_over(m, "max", mesh, kv_dims)
+    p = torch.exp(s - m[..., None])
+    denom = all_reduce_over(p.sum(dim=-1), "sum", mesh, kv_dims)
+    return all_reduce_over(pv(p), "sum", mesh, kv_dims) / denom[..., None]
+
+
+def _sharded_decode_attention(q, k_cache, v_cache, valid, **kw):
+    """``decode_attention`` over placed caches, each rank on its local
+    block (see ``_decode_blocks``): its batch rows and kv heads, and with
+    the cache's length sharded its slots, combined by ``_softmax_pv``."""
+    from torch.distributed.tensor import DTensor
+    mesh = k_cache.device_mesh
+    qp, kv_dims = _decode_blocks(q, k_cache, head_dim=2)
+    q = replicate_like(q, k_cache).redistribute(mesh, qp).to_local()
+    out = _decode_core(q, k_cache.to_local(), v_cache.to_local(),
+                       _local_valid(valid, k_cache), mesh=mesh,
+                       kv_dims=kv_dims, **kw)
+    return DTensor.from_local(out, mesh, qp, run_check=False)
+
+
+def _decode_core(q, k_cache, v_cache, valid_mask, *, attn_softcap=None,
+                 scale=None, mesh=None, kv_dims=()):
     b, _, h, hd = q.shape
     _, t, kh, vd = v_cache.shape
     rep = h // kh
@@ -161,8 +265,9 @@ def decode_attention(
     if attn_softcap is not None:
         s = softcap(s, attn_softcap)
     s = torch.where(valid_mask[:, None, None, :], s, NEG)
-    p = torch.softmax(s, dim=-1)
-    out = _mm32("bkrt,btkd->bkrd", p.to(v_cache.dtype), v_cache)
+    out = _softmax_pv(s, lambda p: _mm32("bkrt,btkd->bkrd",
+                                         p.to(v_cache.dtype), v_cache),
+                      mesh, kv_dims)
     return out.reshape(b, 1, h, vd).to(q.dtype)
 
 
@@ -180,12 +285,22 @@ def gqa_init(generator, d_model: int, n_heads: int, n_kv: int,
     }
 
 
+def _split_heads(y, n: int, seq_axis, heads_axis):
+    """A (b, s, n * d) product as (b, s, n, d), placed first by its heads'
+    rule (``heads_axis``, with ``seq_axis`` for its sequence): DTensor
+    cannot split a dim it sharded over more ranks than it has heads."""
+    b, s, nd = y.shape
+    y = shard(y, "batch", seq_axis, heads_axis)
+    return y.reshape(b, s, n, nd // n)
+
+
 def _project_qkv(params: Mapping[str, torch.Tensor], x, n_heads, n_kv,
                  head_dim):
     b, s, _ = x.shape
-    q = (x @ _w(params, "wq", x)).reshape(b, s, n_heads, head_dim)
-    k = (x @ _w(params, "wk", x)).reshape(b, s, n_kv, head_dim)
-    v = (x @ _w(params, "wv", x)).reshape(b, s, n_kv, head_dim)
+    x = shard(x, "batch", "attn_seq", "embed")   # sequence parallel: gather
+    q = _split_heads(x @ _w(params, "wq", x), n_heads, "attn_seq", "heads")
+    k = _split_heads(x @ _w(params, "wk", x), n_kv, None, "kv_heads")
+    v = _split_heads(x @ _w(params, "wv", x), n_kv, None, "kv_heads")
     q = shard(q, "batch", "attn_seq", "heads", None)
     k = shard(k, "batch", None, "kv_heads", None)
     v = shard(v, "batch", None, "kv_heads", None)
@@ -269,7 +384,8 @@ def gqa_decode(
     where that differs from ``step``; ``decode_valid``) and passes them to
     every layer; left ``None`` they are built here, at ``step``.
     ``cache_k``/``cache_v`` are written IN PLACE at the slot (the
-    reference returns updated copies); returns ``(out, cache_k, cache_v)``.
+    reference returns updated copies; a placed cache in each rank's block,
+    ``set_at``); returns ``(out, cache_k, cache_v)``.
     """
     b, one, _ = x.shape
     t = cache_k.shape[1]
@@ -280,8 +396,8 @@ def gqa_decode(
     q, k = rotate(q, tables), rotate(k, tables)
 
     slot = (step % t) if ring else step      # ring: overwrite the oldest slot
-    cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
-    cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
+    set_at(cache_k, (slice(None), slot), k[:, 0])
+    set_at(cache_v, (slice(None), slot), v[:, 0])
 
     if valid is None:
         valid = decode_valid(b, t, step, ring=ring,
@@ -317,7 +433,7 @@ def _mla_q(params, x, n_heads, nope_dim, rope_dim):
     """(q_nope (b, s, H, nope), q_pe (b, s, H, rope)), not yet rotated."""
     b, s, _ = x.shape
     q = (x @ _w(params, "w_dq", x)) @ _w(params, "w_uq", x)
-    q = q.reshape(b, s, n_heads, nope_dim + rope_dim)
+    q = _split_heads(q, n_heads, "attn_seq", "heads")
     return q[..., :nope_dim], q[..., nope_dim:]
 
 
@@ -329,8 +445,9 @@ def _mla_qkv(params, x, n_heads, nope_dim, rope_dim, v_dim, rope_theta):
     q_nope, q_pe = _mla_q(params, x, n_heads, nope_dim, rope_dim)
     c_kv = x @ _w(params, "w_dkv", x)                       # latent
     k_pe = x @ _w(params, "w_kpe", x)                       # shared by heads
-    k_nope = (c_kv @ _w(params, "w_uk", x)).reshape(b, s, n_heads, nope_dim)
-    v = (c_kv @ _w(params, "w_uv", x)).reshape(b, s, n_heads, v_dim)
+    k_nope = _split_heads(c_kv @ _w(params, "w_uk", x), n_heads, None,
+                          "heads")
+    v = _split_heads(c_kv @ _w(params, "w_uv", x), n_heads, None, "heads")
 
     pos = torch.arange(s, device=x.device)[None, :]
     tables = rope_tables(pos, rope_dim, rope_theta)
@@ -368,9 +485,9 @@ def mla_decode(params, x, cache_ckv, cache_kpe, step: int, *, n_heads: int,
     latent context are float32 from cache-dtype operands (``_mm32``).
 
     Slot ``step`` of ``cache_ckv`` (b, T, kv_lora) and ``cache_kpe``
-    (b, T, rope) is written IN PLACE; slots ``<= step`` are attended to.
-    ``tables`` (``decode_rope_tables`` at ``rope_dim``) and ``valid``
-    (``decode_valid``, flat) are built here when not given.  Returns
+    (b, T, rope) is written IN PLACE (``set_at``); slots ``<= step`` are
+    attended to.  ``tables`` (``decode_rope_tables`` at ``rope_dim``) and
+    ``valid`` (``decode_valid``, flat) are built here when not given.  Returns
     ``(out (b, 1, d), cache_ckv, cache_kpe)``."""
     b, one, _ = x.shape
     t, kv_lora = cache_ckv.shape[1], cache_ckv.shape[2]
@@ -384,26 +501,47 @@ def mla_decode(params, x, cache_ckv, cache_kpe, step: int, *, n_heads: int,
     q_pe = rotate(q_pe, tables)
     c_kv_new = x @ _w(params, "w_dkv", x)
     k_pe_new = rotate((x @ _w(params, "w_kpe", x))[:, :, None, :], tables)
-    cache_ckv[:, step] = c_kv_new[:, 0].to(cache_ckv.dtype)
-    cache_kpe[:, step] = k_pe_new[:, 0, 0].to(cache_kpe.dtype)
+    set_at(cache_ckv, (slice(None), step), c_kv_new[:, 0])
+    set_at(cache_kpe, (slice(None), step), k_pe_new[:, 0, 0])
 
     # absorb W_uk into the query: q_lat (b, h, c)
     w_uk = _w(params, "w_uk", x).reshape(kv_lora, n_heads, nope_dim)
     q_lat = torch.einsum("bshn,chn->bshc", q_nope, w_uk)[:, 0]
 
     scale = 1.0 / math.sqrt(nope_dim + rope_dim)
-    s_lat = _mm32("bhc,btc->bht", q_lat.to(cache_ckv.dtype), cache_ckv)
-    s_pe = _mm32("bhr,btr->bht", q_pe[:, 0].to(cache_kpe.dtype), cache_kpe)
-    s = (s_lat + s_pe) * scale
-    s = torch.where(valid[:, None, :], s, NEG)
-    p = torch.softmax(s, dim=-1)
-    ctx_lat = _mm32("bht,btc->bhc", p.to(cache_ckv.dtype), cache_ckv)
+    ctx_lat = _mla_latent_attention(q_lat, q_pe[:, 0], cache_ckv, cache_kpe,
+                                    valid, scale)
 
     # absorb W_uv into the output projection
     w_uv = _w(params, "w_uv", x).reshape(kv_lora, n_heads, v_dim)
     ctx = torch.einsum("bhc,chv->bhv", ctx_lat.to(x.dtype), w_uv)
     proj = ctx.reshape(b, n_heads * v_dim) @ _w(params, "wo", x)
     return proj[:, None, :], cache_ckv, cache_kpe
+
+
+def _mla_latent_attention(q_lat, q_pe, ckv, kpe, valid, scale):
+    """The latent context (b, h, kv_lora), float32, of the absorbed
+    queries ``q_lat`` (b, h, kv_lora) and ``q_pe`` (b, h, rope) over the
+    ``ckv``/``kpe`` caches.  Placed caches run on each rank's block (see
+    ``_decode_blocks``: q keeps its head shard, the cache has no heads)."""
+    mesh, kv_dims = None, ()
+    if is_dtensor(ckv):
+        from torch.distributed.tensor import DTensor
+        mesh = ckv.device_mesh
+        qp, kv_dims = _decode_blocks(q_lat, ckv, head_dim=None)
+        q_lat, q_pe = (replicate_like(t, ckv).redistribute(mesh, qp)
+                       .to_local() for t in (q_lat, q_pe))
+        valid = _local_valid(valid, ckv)
+        ckv, kpe = ckv.to_local(), kpe.to_local()
+    s_lat = _mm32("bhc,btc->bht", q_lat.to(ckv.dtype), ckv)
+    s_pe = _mm32("bhr,btr->bht", q_pe.to(kpe.dtype), kpe)
+    s = (s_lat + s_pe) * scale
+    s = torch.where(valid[:, None, :], s, NEG)
+    ctx = _softmax_pv(s, lambda p: _mm32("bht,btc->bhc", p.to(ckv.dtype),
+                                         ckv), mesh, kv_dims)
+    if mesh is None:
+        return ctx
+    return DTensor.from_local(ctx, mesh, qp, run_check=False)
 
 
 # --------------------------------------------------------------------------- #
@@ -417,7 +555,7 @@ def cross_attn_forward(params, x, enc_kv, *, n_heads: int, n_kv: int,
     ``min(chunk, Se)``; uses ``wq`` and ``wo`` of ``params``."""
     b, s, _ = x.shape
     k, v = enc_kv
-    q = (x @ _w(params, "wq", x)).reshape(b, s, n_heads, head_dim)
+    q = _split_heads(x @ _w(params, "wq", x), n_heads, "attn_seq", "heads")
     q = shard(q, "batch", "attn_seq", "heads", None)
     out = chunked_attention(q, k, v, causal=False,
                             chunk=min(chunk, k.shape[1]))
@@ -430,6 +568,8 @@ def cross_kv(params, enc_out, *, n_kv: int, head_dim: int):
     from ``wk`` and ``wv`` of ``params``: computed once a prompt, the
     decode steps' ``ck``/``cv`` caches."""
     b, s, _ = enc_out.shape
-    k = (enc_out @ _w(params, "wk", enc_out)).reshape(b, s, n_kv, head_dim)
-    v = (enc_out @ _w(params, "wv", enc_out)).reshape(b, s, n_kv, head_dim)
+    k = _split_heads(enc_out @ _w(params, "wk", enc_out), n_kv, None,
+                     "kv_heads")
+    v = _split_heads(enc_out @ _w(params, "wv", enc_out), n_kv, None,
+                     "kv_heads")
     return k, v

@@ -43,7 +43,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..distributed.partitioning import replicate_like, shard
+from ..distributed.partitioning import (is_dtensor, local_offsets,
+                                        replicate_like, shard)
 
 __all__ = ["DTYPE", "PARAM_DTYPE", "dense_init", "embedding_init",
            "rmsnorm_init", "cast_params", "rmsnorm", "softcap", "mlp_init",
@@ -181,7 +182,10 @@ def mlp_init(generator, d_model: int, d_ff: int, gated: bool = True, *,
 
 
 def mlp_apply(params: Mapping[str, torch.Tensor], x: torch.Tensor, act=silu):
-    """(Gated-)MLP: ``act(x @ w_gate) * (x @ w_in) @ w_out``."""
+    """(Gated-)MLP: ``act(x @ w_gate) * (x @ w_in) @ w_out``.  On a mesh
+    a sequence-sharded ``x`` is gathered once ("mlp_seq") for both input
+    products."""
+    x = shard(x, "batch", "mlp_seq", "embed")
     h = x @ _w(params, "w_in", x)
     if "w_gate" in params:
         h = act(x @ _w(params, "w_gate", x)) * h
@@ -217,10 +221,19 @@ def _mrope_streams(sections: tuple, device: str) -> torch.Tensor:
                         device=device)
 
 
+def _is_fake(t: torch.Tensor) -> bool:
+    """Whether ``t`` is a fake tensor (the dry run's): the tables cached
+    above are never built from one, or a later real run would get it."""
+    from torch._subclasses.fake_tensor import FakeTensor
+    return isinstance(t, FakeTensor)
+
+
 def rope_tables(positions: torch.Tensor, head_dim: int,
                 theta: float = 10_000.0):
     """(sin, cos) of shape (..., S, 1, hd/2) for ``positions`` (..., S)."""
-    inv = _inv_freqs(head_dim, float(theta), str(positions.device))  # (hd/2,)
+    inv = (rope_freqs(head_dim, theta, device=positions.device)
+           if _is_fake(positions) else
+           _inv_freqs(head_dim, float(theta), str(positions.device)))
     ang = positions[..., :, None].float() * inv                  # (..., S, hd/2)
     return torch.sin(ang)[..., :, None, :], torch.cos(ang)[..., :, None, :]
 
@@ -236,8 +249,13 @@ def mrope_tables(positions3: torch.Tensor, head_dim: int,
     if sum(sections) != half:
         raise ValueError(f"M-RoPE sections {tuple(sections)} do not split "
                          f"head_dim/2 = {half}")
-    inv = _inv_freqs(head_dim, float(theta), str(positions3.device))
-    stream = _mrope_streams(tuple(sections), str(positions3.device))
+    if _is_fake(positions3):
+        inv = rope_freqs(head_dim, theta, device=positions3.device)
+        stream = _mrope_streams.__wrapped__(tuple(sections),
+                                            positions3.device)
+    else:
+        inv = _inv_freqs(head_dim, float(theta), str(positions3.device))
+        stream = _mrope_streams(tuple(sections), str(positions3.device))
     ang = positions3.float()[..., stream] * inv                  # (..., S, hd/2)
     return torch.sin(ang)[..., :, None, :], torch.cos(ang)[..., :, None, :]
 
@@ -266,9 +284,54 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, sections,
 # embeddings / unembedding
 # --------------------------------------------------------------------------- #
 
+def _local_rows(table: torch.Tensor, tokens: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor:
+    """``table[tokens]`` in ``dtype`` of DTensors, placed as ``embed``
+    places it, with the table never gathered along its vocab: each rank
+    looks its tokens up in its own vocab block, an id outside the block
+    giving a zero row, and the rows, a partial sum over the mesh dims
+    that shard the vocab, are reduced into their placement (an all-reduce
+    or a reduce-scatter of tokens x d).  The tokens are gathered over
+    those dims (each vocab block sees every token of its group) and the
+    table over the others (FSDP's weight gather).  DTensor's own index
+    and its backward (index_put) fail on sharded ids in some torch
+    releases (2.11); here the table's gradient is each rank's index-add
+    into its block, a partial sum over the mesh dims that shard the
+    tokens, reduced back into the table's placement."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    table = replicate_like(table, tokens)
+    mesh = tokens.device_mesh
+    vocab = {i for i, p in enumerate(table.placements)
+             if isinstance(p, Shard) and p.dim == 0}
+    tokens = tokens.redistribute(mesh, [
+        Replicate() if i in vocab else p
+        for i, p in enumerate(tokens.placements)])
+    table = table.redistribute(mesh, [Shard(0) if i in vocab else Replicate()
+                                      for i in range(mesh.ndim)])
+    grad = [Shard(0) if i in vocab else Partial() if p.is_shard()
+            else Replicate() for i, p in enumerate(tokens.placements)]
+    block = table.to_local(grad_placements=grad)
+    ids = tokens.to_local().long() - local_offsets(table)[0]
+    inside = (ids >= 0) & (ids < block.shape[0])
+    rows = block[ids.clamp(0, block.shape[0] - 1)].to(dtype)
+    rows = torch.where(inside[..., None], rows, rows.new_zeros(()))
+    d = table.shape[1]
+    rows = DTensor.from_local(
+        rows, mesh, [Partial() if i in vocab else p
+                     for i, p in enumerate(tokens.placements)],
+        run_check=False, shape=tuple(tokens.shape) + (d,),
+        stride=(tokens.shape[1] * d, d, 1))
+    return shard(rows, "batch", "seq", "embed")
+
+
 def embed(params_w: torch.Tensor, tokens: torch.Tensor,
           scale_by_dim: bool = False):
-    out = params_w[tokens.long()].to(DTYPE)      # gather, then cast: same values
+    """The tokens' rows of the table in ``DTYPE``.  On a mesh each rank
+    looks its tokens up in its own vocab block (``_local_rows``)."""
+    if is_dtensor(tokens):
+        out = _local_rows(params_w, tokens, DTYPE)
+    else:
+        out = params_w[tokens.long()].to(DTYPE)  # gather, then cast: same values
     if scale_by_dim:
         # the scale rounded to the activation dtype on the host (a device
         # tensor would wait for the card), as JAX's weakly typed scalar is
@@ -317,6 +380,8 @@ def chunked_softmax_cross_entropy(x: torch.Tensor, w_un: torch.Tensor,
     b, s, d = x.shape
     if s % seq_chunk or s <= seq_chunk:
         return softmax_cross_entropy(unembed(w_un, x, cap=cap), labels, z_loss)
+    # on a mesh, a sequence-sharded x is gathered once, not once a chunk
+    x = shard(x, "batch", "logit_seq", "embed")
     total = replicate_like(torch.zeros((), dtype=torch.float32,
                                        device=x.device), x)
     for lo in range(0, s, seq_chunk):

@@ -19,7 +19,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..configs.base import ModelConfig
-from ..distributed.partitioning import replicate_like, shard
+from ..distributed.partitioning import placed_zeros, replicate_like, shard
 from . import common
 from .attention import (GQA_AXES, cross_attn_forward, cross_kv,
                         decode_rope_tables, decode_valid, gqa_decode,
@@ -30,7 +30,7 @@ from .transformer import _fill_flat, _Layer, _remat, load_tree
 
 __all__ = ["EncoderLayer", "CrossDecoderLayer", "encdec_init", "encode",
            "encdec_forward", "encdec_prefill", "encdec_decode_step",
-           "encdec_cache_spec", "init_cache"]
+           "encdec_cache_spec", "ENCDEC_CACHE_AXES", "init_cache"]
 
 
 def _enc_layer_init(generator, cfg: ModelConfig, *, device=None):
@@ -160,10 +160,11 @@ def encdec_prefill(model, cfg: ModelConfig, frames, tokens, cache_len: int,
         cks.append(ck)
         cvs.append(cv)
     x = rmsnorm(x[:, -1:, :], model.final_norm, cfg.rms_eps)
-    dt = common.DTYPE
-    cache = {"k": _fill_flat(torch.stack(ks), cache_len),
-             "v": _fill_flat(torch.stack(vs), cache_len),
-             "ck": torch.stack(cks).to(dt), "cv": torch.stack(cvs).to(dt)}
+    dt, axes = common.DTYPE, ENCDEC_CACHE_AXES
+    cache = {"k": _fill_flat(torch.stack(ks), cache_len, axes["k"]),
+             "v": _fill_flat(torch.stack(vs), cache_len, axes["v"]),
+             "ck": shard(torch.stack(cks).to(dt), *axes["ck"]),
+             "cv": shard(torch.stack(cvs).to(dt), *axes["cv"])}
     return unembed(model.embed, x), cache
 
 
@@ -193,6 +194,12 @@ def encdec_decode_step(model, cfg: ModelConfig, cache, tokens, step):
     return unembed(model.embed, x), cache
 
 
+# the reference's logical axes of each cache entry (``encdec_cache_spec``)
+ENCDEC_CACHE_AXES = dict.fromkeys(("k", "v", "ck", "cv"),
+                                  ("layers", "batch", "kv_len", "kv_heads",
+                                   None))
+
+
 def encdec_cache_spec(cfg: ModelConfig, batch: int, cache_len: int,
                       enc_len: int) -> Dict[str, Tuple[tuple, torch.dtype]]:
     """{name: (shape, dtype)}: self-attention ``k``/``v`` of ``cache_len``
@@ -207,7 +214,12 @@ def encdec_cache_spec(cfg: ModelConfig, batch: int, cache_len: int,
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, enc_len: int,
-               *, device=None) -> Dict[str, torch.Tensor]:
+               *, device=None, like=None) -> Dict[str, torch.Tensor]:
+    """Zeroed caches (placed by ``ENCDEC_CACHE_AXES`` given ``like``, as
+    ``transformer.init_cache``)."""
+    spec = encdec_cache_spec(cfg, batch, cache_len, enc_len)
+    if like is not None:
+        return {k: placed_zeros(s, dt, like, ENCDEC_CACHE_AXES[k])
+                for k, (s, dt) in spec.items()}
     return {k: torch.zeros(s, dtype=dt, device=device)
-            for k, (s, dt) in encdec_cache_spec(cfg, batch, cache_len,
-                                                enc_len).items()}
+            for k, (s, dt) in spec.items()}

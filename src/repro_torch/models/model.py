@@ -197,11 +197,16 @@ class Model(nn.Module):
     def init_cache(self, batch: int, cache_len: int, *,
                    enc_len: Optional[int] = None) -> Dict[str, torch.Tensor]:
         """Zeroed decode caches; the enc-dec's cross caches hold
-        ``enc_len`` (default ``cache_len``) encoder positions."""
+        ``enc_len`` (default ``cache_len``) encoder positions.  A model on
+        a mesh, under rules, gets each entry placed by
+        ``cache_logical_axes`` (each rank allocating its block)."""
+        like = self.embed if self.mesh is not None else None
         if self.cfg.family == "encdec":
             return ed.init_cache(self.cfg, batch, cache_len,
-                                 enc_len or cache_len, device=self.device)
-        return tf.init_cache(self.cfg, batch, cache_len, device=self.device)
+                                 enc_len or cache_len, device=self.device,
+                                 like=like)
+        return tf.init_cache(self.cfg, batch, cache_len, device=self.device,
+                             like=like)
 
     # ---------------------- logical axes and specs ----------------------- #
     def param_logical_axes(self) -> Dict[str, Tuple]:
@@ -233,25 +238,39 @@ class Model(nn.Module):
                            enc_len=None) -> Dict[str, Tuple]:
         """The reference's logical axes of each decode-cache entry (the
         caches keep the stacked layout, so ``"layers"`` leads)."""
+        if self.cfg.family == "encdec":
+            return dict(ed.ENCDEC_CACHE_AXES)
+        return tf.cache_axes(self.cfg)
+
+    def input_specs(self, shape: ShapeConfig, *, enc_len: Optional[int] = None,
+                    device=None) -> Dict[str, torch.Tensor]:
+        """Zero stand-ins of a ``shape`` cell's batch, the reference's
+        shapes and dtypes (int32 tokens and labels, patches and frames in
+        ``DTYPE``), on ``device`` (default the model's): on ``meta``, or
+        under a ``FakeTensorMode``, nothing is allocated.  A
+        decode cell's batch is its one new token a sequence; ``enc_len``
+        is taken for the reference's signature."""
         cfg = self.cfg
-        layers = ("layers", "batch", "kv_len", "kv_heads", None)
+        b, s = shape.global_batch, shape.seq_len
+        dev = self.device if device is None else device
+
+        def sd(shp, dt=torch.int32):
+            return torch.zeros(shp, dtype=dt, device=dev)
+        if shape.kind == "decode":
+            return {"tokens": sd((b, 1))}
+        extra, s_text = {}, s
         if cfg.family == "encdec":
-            return dict.fromkeys(("k", "v", "ck", "cv"), layers)
-        if cfg.family in ("ssm", "hybrid"):
-            conv_bc = ("layers", "batch", None, None)
-            axes = {"conv_x": ("layers", "batch", None, None, "ssm_inner"),
-                    "conv_b": conv_bc, "conv_c": conv_bc,
-                    "ssm": ("layers", "batch", None, "ssm_inner", None)}
-            if cfg.family == "hybrid":
-                axes["k"] = axes["v"] = layers
-            return axes
-        if cfg.mla:
-            return dict.fromkeys(("ckv", "kpe"),
-                                 ("layers", "batch", "kv_len", None))
-        if cfg.paired_local_global:
-            return dict.fromkeys(("k_loc", "v_loc", "k_glob", "v_glob"),
-                                 layers)
-        return {"k": layers, "v": layers}
+            extra = {"frames": sd((b, s, cfg.d_model), common.DTYPE)}
+        elif cfg.family == "vlm":
+            s_text = s - cfg.n_patches
+            extra = {"patches": sd((b, cfg.n_patches, cfg.d_model),
+                                   common.DTYPE)}
+        if shape.kind == "train":
+            return {**extra, "tokens": sd((b, s_text)),
+                    "labels": sd((b, s_text))}
+        if cfg.family == "encdec":
+            return {**extra, "tokens": sd((b, 1))}
+        return {**extra, "tokens": sd((b, s_text))}
 
     def input_logical_axes(self, shape: ShapeConfig) -> Dict[str, Tuple]:
         """The logical axes of each input of a ``shape`` cell's batch."""

@@ -24,7 +24,9 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from ..distributed.partitioning import replicate_like, shard
+from ..distributed.partitioning import (is_dtensor, replicate_like,
+                                        replicated, replicated_dims, set_at,
+                                        shard)
 from .common import _empty, _w, dense_init, silu
 
 __all__ = ["CONV_K", "mamba2_init", "ssd_chunked", "mamba2_forward",
@@ -94,10 +96,69 @@ def mamba2_init(generator: Optional[torch.Generator], d_model: int, *,
     return params
 
 
+def _unaligned(w: torch.Tensor, merged) -> bool:
+    """Whether a DTensor weight shards one of its ``merged`` (H, P) dims
+    over more ranks than divide its H heads: DTensor would shard the
+    merged H * P dim (or its gradient) in even chunks, which do not split
+    back into whole heads."""
+    if not is_dtensor(w):
+        return False
+    from torch.distributed.tensor import Shard
+    h = w.shape[merged[0]]
+    return any(isinstance(p, Shard) and p.dim in merged
+               and h % w.device_mesh.size(i)
+               for i, p in enumerate(w.placements))
+
+
+def _local_proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x (..., d) @ w (d, H, P)`` of DTensors as each rank's local
+    product (for ``_unaligned`` weights): w gathered over ``d``, x over
+    ``d`` and on every mesh dim that shards w's (H, P); the result keeps
+    x's leading shards and w's (H, P) shards.  The gradients are the
+    partial sums they are where a rank saw part of the contraction's
+    partners (``grad_placements``)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh, lead = w.device_mesh, x.ndim - 1
+    x = replicate_like(x, w)
+    wp, xp, yp, w_grad, x_grad = [], [], [], [], []
+    for i, (pw, px) in enumerate(zip(w.placements, x.placements)):
+        if isinstance(pw, Shard) and pw.dim >= 1:
+            wp.append(pw)
+            xp.append(Replicate())
+            yp.append(Shard(lead + pw.dim - 1))
+            w_grad.append(pw)
+            x_grad.append(Partial())
+        else:
+            keep = isinstance(px, Shard) and px.dim < lead
+            wp.append(Replicate())
+            xp.append(px if keep else Replicate())
+            yp.append(px if keep else Replicate())
+            w_grad.append(Partial() if keep else Replicate())
+            x_grad.append(px if keep else Replicate())
+    wl = w.redistribute(mesh, wp).to_local(grad_placements=w_grad)
+    xl = x.redistribute(mesh, xp).to_local(grad_placements=x_grad)
+    y = (xl @ wl.reshape(wl.shape[0], -1)).reshape(*xl.shape[:-1],
+                                                   *wl.shape[1:])
+    shape = tuple(x.shape[:-1]) + tuple(w.shape[1:])
+    return DTensor.from_local(y, mesh, yp, run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta")
+                              .stride())
+
+
+def _out_proj(y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``y (..., H, P) @ w (H, P, d)`` over the flattened (H, P) dims; an
+    ``_unaligned`` weight is gathered first (y with it)."""
+    if _unaligned(w, (0, 1)):
+        y, w = replicated_dims(y, (y.ndim - 2, y.ndim - 1)), replicated(w)
+    return y.reshape(*y.shape[:-2], -1) @ w.reshape(-1, w.shape[-1])
+
+
 def _proj(x: torch.Tensor, params: Params, name: str) -> torch.Tensor:
     """``x (..., d) @ params[name] (d, *out)`` -> ``(..., *out)``, the
     weight cast to the activation dtype."""
     w = _w(params, name, x)
+    if w.ndim > 2 and _unaligned(w, (1, 2)):
+        return _local_proj(x, w)
     return (x @ w.reshape(w.shape[0], -1)).reshape(*x.shape[:-1],
                                                    *w.shape[1:])
 
@@ -208,9 +269,11 @@ def mamba2_forward(params: Params, hidden: torch.Tensor, *, d_model: int,
     z = shard(_proj(hidden, params, "w_z"),                # (b,s,h,p)
               "batch", None, None, "ssm_inner")
     x = shard(_proj(hidden, params, "w_x"), "batch", None, None, "ssm_inner")
-    Bp = _proj(hidden, params, "w_b")                      # (b,s,n)
-    Cp = _proj(hidden, params, "w_c")
-    dt = _proj(hidden, params, "w_dt")                     # (b,s,h)
+    # B, C and dt replicated past the batch: DTensor may shard dt's
+    # heads, which then split the SSD's (H, P) products unevenly
+    Bp = shard(_proj(hidden, params, "w_b"), "batch", None, None)   # (b,s,n)
+    Cp = shard(_proj(hidden, params, "w_c"), "batch", None, None)
+    dt = shard(_proj(hidden, params, "w_dt"), "batch", None, None)  # (b,s,h)
 
     if conv_state is None:
         zeros_n = hidden.new_zeros((b, CONV_K - 1, state))
@@ -227,9 +290,8 @@ def mamba2_forward(params: Params, hidden: torch.Tensor, *, d_model: int,
         x_c.float(), dt_s, A, B_c.float(), C_c.float(), params["D"],
         chunk=min(chunk, s), init_state=ssm_state)
     y = _gated_norm(y, z, params["norm"]).to(hidden.dtype)
-    out = y.reshape(b, s, -1) @ _w(params, "w_out", hidden).reshape(
-        -1, d_model)
-    out = shard(out, "batch", "seq", "embed")
+    out = shard(_out_proj(y, _w(params, "w_out", hidden)), "batch", "seq",
+                "embed")
     if return_state:
         return out, ({"x": tail_x, "b": tail_b, "c": tail_c}, final)
     return out
@@ -238,10 +300,11 @@ def mamba2_forward(params: Params, hidden: torch.Tensor, *, d_model: int,
 def _conv_step(tail: torch.Tensor, new: torch.Tensor, w: torch.Tensor):
     """One token of the causal conv: ``silu`` of the taps over the tail and
     ``new``; the tail (b, K-1, ...) shifts by one IN PLACE (through the
-    new history, a copy, since source and target overlap)."""
+    new history, a copy, since source and target overlap; a placed tail
+    in each rank's block, ``set_at``)."""
     hist = torch.cat([tail.to(new.dtype), new[:, None]], dim=1)  # (b,K,...)
     out = (hist * w.to(new.dtype)).sum(dim=1)
-    tail.copy_(hist[:, 1:])
+    set_at(tail, (), hist[:, 1:])
     return silu(out)
 
 
@@ -268,11 +331,11 @@ def mamba2_decode(params: Params, hidden: torch.Tensor, conv_state,
     A = -torch.exp(params["A_log"])
     dA = torch.exp(dt_s * A)                               # (b,h)
     xdt = x_c.float() * dt_s[..., None]                    # (b,h,p)
-    ssm_state.mul_(dA[..., None, None]).add_(
-        xdt[..., None] * B_c[:, None, None, :])
-    y = torch.einsum("bhpn,bn->bhp", ssm_state, C_c)
+    new_state = (ssm_state * dA[..., None, None]
+                 + xdt[..., None] * B_c[:, None, None, :])
+    set_at(ssm_state, (), new_state)
+    y = torch.einsum("bhpn,bn->bhp", new_state, C_c)
     y = y + x_c.float() * params["D"][:, None]
     y = _gated_norm(y, z, params["norm"]).to(hidden.dtype)
-    out = y.reshape(y.shape[0], -1) @ _w(params, "w_out", hidden).reshape(
-        -1, d_model)
+    out = _out_proj(y, _w(params, "w_out", hidden))
     return out[:, None], conv_state, ssm_state

@@ -33,7 +33,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
-from ..distributed.partitioning import replicate_like, shard
+from ..distributed.partitioning import (placed_zeros, replicate_like,
+                                        set_at, shard)
 from . import common
 from .attention import (GQA_AXES, MLA_AXES, decode_rope_tables,
                         decode_valid, gqa_decode, gqa_forward, gqa_init,
@@ -46,7 +47,8 @@ from .ssm import (CONV_K, MAMBA2_AXES, mamba2_decode, mamba2_forward,
                   mamba2_init)
 
 __all__ = ["BIG_WINDOW", "DecoderLayer", "MambaLayer", "decoder_init",
-           "decoder_forward", "cache_spec", "init_cache", "decoder_prefill",
+           "decoder_forward", "cache_spec", "cache_axes", "init_cache",
+           "decoder_prefill",
            "decoder_decode_step", "hybrid_init", "hybrid_forward",
            "hybrid_prefill", "hybrid_decode_step"]
 
@@ -371,8 +373,35 @@ def cache_spec(cfg: ModelConfig, batch: int, cache_len: int
     return {"k": ((L, batch, t) + kv, dt), "v": ((L, batch, t) + kv, dt)}
 
 
+def cache_axes(cfg: ModelConfig) -> Dict[str, Tuple]:
+    """The reference's logical axes of each entry of ``cache_spec`` (the
+    caches keep the stacked layout, so ``"layers"`` leads)."""
+    layers = ("layers", "batch", "kv_len", "kv_heads", None)
+    if cfg.family in ("ssm", "hybrid"):
+        conv_bc = ("layers", "batch", None, None)
+        axes = {"conv_x": ("layers", "batch", None, None, "ssm_inner"),
+                "conv_b": conv_bc, "conv_c": conv_bc,
+                "ssm": ("layers", "batch", None, "ssm_inner", None)}
+        if cfg.family == "hybrid":
+            axes["k"] = axes["v"] = layers
+        return axes
+    if cfg.mla:
+        return dict.fromkeys(("ckv", "kpe"),
+                             ("layers", "batch", "kv_len", None))
+    if cfg.paired_local_global:
+        return dict.fromkeys(("k_loc", "v_loc", "k_glob", "v_glob"), layers)
+    return {"k": layers, "v": layers}
+
+
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *,
-               device=None) -> Dict[str, torch.Tensor]:
+               device=None, like=None) -> Dict[str, torch.Tensor]:
+    """Zeroed decode caches on ``device``; given ``like``, a DTensor of a
+    model on a mesh under rules, each entry is placed by ``cache_axes``
+    (``partitioning.placed_zeros``)."""
+    if like is not None:
+        axes = cache_axes(cfg)
+        return {k: placed_zeros(s, dt, like, axes[k])
+                for k, (s, dt) in cache_spec(cfg, batch, cache_len).items()}
     return {k: torch.zeros(s, dtype=dt, device=device)
             for k, (s, dt) in cache_spec(cfg, batch, cache_len).items()}
 
@@ -392,26 +421,30 @@ def _finish_block(p_l, cfg: ModelConfig, h, attn_out):
 # prefill (build decode caches from a prompt)
 # --------------------------------------------------------------------------- #
 
-def _fill_ring(k_stack, cache_len: int, window: int):
+def _fill_ring(k_stack, cache_len: int, window: int, axes):
     """Place the last ``window`` positions of (L, B, S, ...) into ring
-    slots ``(s-w ... s-1) % w``."""
+    slots ``(s-w ... s-1) % w``: a cache (placed by ``axes`` on a mesh)
+    that holds position ``p`` at slot ``p % w``."""
     s = k_stack.shape[2]
     w = min(window, cache_len)
-    out = torch.zeros(k_stack.shape[:2] + (w,) + k_stack.shape[3:],
-                      dtype=common.DTYPE, device=k_stack.device)
+    out = placed_zeros(k_stack.shape[:2] + (w,) + k_stack.shape[3:],
+                       common.DTYPE, k_stack, axes)
     if s <= w:
-        out[:, :, :s] = k_stack
-        return out
-    slots = torch.arange(s - w, s, device=k_stack.device) % w
-    out[:, :, slots] = k_stack[:, :, s - w:].to(out.dtype)
+        return set_at(out, (slice(None), slice(None), slice(0, s)), k_stack)
+    r = s % w                   # the slot of position s - w
+    last = k_stack[:, :, s - w:]
+    set_at(out, (slice(None), slice(None), slice(r, w)), last[:, :, :w - r])
+    if r:
+        set_at(out, (slice(None), slice(None), slice(0, r)),
+               last[:, :, w - r:])
     return out
 
 
-def _fill_flat(k_stack, cache_len: int):
-    out = torch.zeros(k_stack.shape[:2] + (cache_len,) + k_stack.shape[3:],
-                      dtype=common.DTYPE, device=k_stack.device)
-    out[:, :, :k_stack.shape[2]] = k_stack
-    return out
+def _fill_flat(k_stack, cache_len: int, axes):
+    out = placed_zeros(k_stack.shape[:2] + (cache_len,) + k_stack.shape[3:],
+                       common.DTYPE, k_stack, axes)
+    return set_at(out, (slice(None), slice(None), slice(0, k_stack.shape[2])),
+                  k_stack)
 
 
 def _mamba_prefill(p_l, cfg: ModelConfig, x, cache, i: int):
@@ -422,8 +455,8 @@ def _mamba_prefill(p_l, cfg: ModelConfig, x, cache, i: int):
         p_l["mamba"], rmsnorm(x, p_l["ln"], cfg.rms_eps),
         chunk=cfg.ssd_chunk, return_state=True, **_mamba_kw(cfg))
     for name in ("x", "b", "c"):
-        cache[f"conv_{name}"][i] = conv[name]
-    cache["ssm"][i] = state
+        set_at(cache[f"conv_{name}"], (i,), conv[name])
+    set_at(cache["ssm"], (i,), state)
     return x + out
 
 
@@ -433,7 +466,7 @@ def decoder_prefill(model, cfg: ModelConfig, tokens=None, *, x_embed=None,
     ``decoder_forward``): returns (last-token logits, decode cache)."""
     x = shard(_embed_or(model, cfg, tokens, x_embed), "batch", "seq", "embed")
     if cfg.family == "ssm":
-        cache = init_cache(cfg, x.shape[0], cache_len, device=x.device)
+        cache = init_cache(cfg, x.shape[0], cache_len, like=x)
         for i, p_l in enumerate(model.layers):
             x = _mamba_prefill(p_l, cfg, x, cache, i)
         x = rmsnorm(x[:, -1:, :], model.final_norm, cfg.rms_eps)
@@ -446,20 +479,23 @@ def decoder_prefill(model, cfg: ModelConfig, tokens=None, *, x_embed=None,
         ks.append(k)
         vs.append(v)
     k_s, v_s = torch.stack(ks), torch.stack(vs)
+    axes = cache_axes(cfg)
     if cfg.mla:
-        cache = {"ckv": _fill_flat(k_s, cache_len),
-                 "kpe": _fill_flat(v_s, cache_len)}
+        cache = {"ckv": _fill_flat(k_s, cache_len, axes["ckv"]),
+                 "kpe": _fill_flat(v_s, cache_len, axes["kpe"])}
     elif cfg.uses_swa_everywhere:
-        cache = {"k": _fill_ring(k_s, cache_len, cfg.window),
-                 "v": _fill_ring(v_s, cache_len, cfg.window)}
+        cache = {"k": _fill_ring(k_s, cache_len, cfg.window, axes["k"]),
+                 "v": _fill_ring(v_s, cache_len, cfg.window, axes["v"])}
     elif cfg.paired_local_global:
-        cache = {"k_loc": _fill_ring(k_s[0::2], cache_len, cfg.window),
-                 "v_loc": _fill_ring(v_s[0::2], cache_len, cfg.window),
-                 "k_glob": _fill_flat(k_s[1::2], cache_len),
-                 "v_glob": _fill_flat(v_s[1::2], cache_len)}
+        ring = functools.partial(_fill_ring, cache_len=cache_len,
+                                 window=cfg.window, axes=axes["k_loc"])
+        flat = functools.partial(_fill_flat, cache_len=cache_len,
+                                 axes=axes["k_glob"])
+        cache = {"k_loc": ring(k_s[0::2]), "v_loc": ring(v_s[0::2]),
+                 "k_glob": flat(k_s[1::2]), "v_glob": flat(v_s[1::2])}
     else:
-        cache = {"k": _fill_flat(k_s, cache_len),
-                 "v": _fill_flat(v_s, cache_len)}
+        cache = {"k": _fill_flat(k_s, cache_len, axes["k"]),
+                 "v": _fill_flat(v_s, cache_len, axes["v"])}
     x = rmsnorm(x[:, -1:, :], model.final_norm, cfg.rms_eps)
     return unembed(_unembed_w(model), x, cap=cfg.final_softcap), cache
 
@@ -610,7 +646,7 @@ def hybrid_prefill(model, cfg: ModelConfig, tokens, cache_len: int, *,
     one flat KV cache per shared-block application."""
     x = embed(model.embed, tokens)
     n_seg = _hybrid_segments(cfg)
-    cache = init_cache(cfg, x.shape[0], cache_len, device=x.device)
+    cache = init_cache(cfg, x.shape[0], cache_len, like=x)
     for name in ("conv_x", "conv_b", "conv_c", "ssm"):
         cache[name] = cache[name][:n_seg * cfg.attn_every]
     s = x.shape[1]
@@ -620,8 +656,8 @@ def hybrid_prefill(model, cfg: ModelConfig, tokens, cache_len: int, *,
             x = _mamba_prefill(p_l, cfg, x, cache, i)
         x, _, (k, v) = _attn_layer_fwd(shared, cfg, x, BIG_WINDOW,
                                        chunk=chunk, collect_kv=True)
-        cache["k"][seg, :, :s] = k
-        cache["v"][seg, :, :s] = v
+        set_at(cache["k"], (seg, slice(None), slice(0, s)), k)
+        set_at(cache["v"], (seg, slice(None), slice(0, s)), v)
     x = rmsnorm(x[:, -1:, :], model.final_norm, cfg.rms_eps)
     return unembed(_unembed_w(model), x, cap=cfg.final_softcap), cache
 

@@ -13,12 +13,19 @@ they were, as the reference's functional step does (``train``'s retry
 restores from a checkpoint and runs the step again).
 
 A model placed on a mesh (``distributed.sharding.place_model``) trains
-under ``use_rules(rules)``, as the reference's steps run under its mesh
-and rules: each rank is given the GLOBAL batch, which the step places by
-``input_pspecs`` (a data rank keeps its rows), the loss is the mean over
-the whole batch on every rank, and each gradient is redistributed to its
-parameter's placement (the data-parallel all-reduce) before AdamW runs
-on the DTensor leaves.
+and serves under ``use_rules(rules)``, as the reference's steps run under
+its mesh and rules: each rank is given the GLOBAL batch (or tokens),
+which the step places by ``input_pspecs`` of the step's kind (a data
+rank keeps its rows; inputs that are DTensors already stay as they are),
+the loss is the mean over the whole batch on every rank, and each
+gradient is redistributed to its parameter's placement (the
+data-parallel all-reduce) before AdamW runs on the DTensor leaves.  With
+``microbatches > 1`` the ``i``-th microbatch is the ``i``-th contiguous
+slice of the global batch, as in the reference, placed on its own (a
+batch given placed is gathered along its rows first).  Prefill
+returns its caches placed by ``cache_logical_axes``; a decode step takes
+such a cache (or ``Model.init_cache``'s, placed) and writes it in place,
+each rank into its block.  Logits come back as DTensors.
 """
 from __future__ import annotations
 
@@ -27,7 +34,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from ..configs.base import ShapeConfig
-from ..distributed.partitioning import get_rules, is_dtensor
+from ..distributed.partitioning import get_rules, is_dtensor, replicated_dims
 from ..distributed.sharding import input_pspecs, place_batch
 from ..models.model import Model
 from ..optim import AdamWConfig, adamw_update
@@ -37,27 +44,43 @@ __all__ = ["make_train_step", "make_prefill_step", "make_serve_step",
 
 
 def _to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
-    """Each array of ``batch`` (numpy or torch) as a tensor on ``device``."""
-    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+    """Each array of ``batch`` (numpy or torch) as a tensor on ``device``
+    (a DTensor as it is)."""
+    return {k: v if is_dtensor(v) else torch.as_tensor(v).to(device)
+            for k, v in batch.items()}
 
 
-def _on_mesh(model: Model, batch: Dict[str, torch.Tensor]):
+def _on_mesh(model: Model, batch: Dict[str, torch.Tensor],
+             kind: str = "train"):
     """``batch`` as it is, or on the model's mesh placed by the active
-    rules' ``input_pspecs``."""
+    rules' ``input_pspecs`` for a step of ``kind``."""
     if model.mesh is None:
         return batch
     rules = get_rules()
     if rules is None:
-        raise RuntimeError("a model placed on a mesh trains under "
+        raise RuntimeError("a model placed on a mesh runs its steps under "
                            "use_rules(rules_for_arch(cfg, mesh))")
-    axes = model.input_logical_axes(ShapeConfig("step", 0, 0, "train"))
-    return place_batch(batch, model.mesh, input_pspecs(axes, rules))
+    axes = model.input_logical_axes(ShapeConfig("step", 0, 0, kind))
+    specs = input_pspecs(axes, rules)
+    plain = {k: v for k, v in batch.items() if not is_dtensor(v)}
+    return {**batch, **place_batch(plain, model.mesh, specs)}
+
+
+def _microbatch(v: torch.Tensor, i: int, n: int) -> torch.Tensor:
+    """The ``i``-th of ``n`` contiguous dim-0 slices of the global ``v``
+    (the reference's ``reshape(n, B // n, ...)``).  A DTensor is gathered
+    along dim 0 and its slice placed as ``v`` was."""
+    m = v.shape[0] // n
+    if not is_dtensor(v):
+        return v[i * m:(i + 1) * m]
+    return replicated_dims(v, [0])[i * m:(i + 1) * m].redistribute(
+        v.device_mesh, v.placements)
 
 
 def _mesh_loss(model: Model, batch) -> torch.Tensor:
     """``model.loss`` of the (placed) batch as a plain tensor: a DTensor
     loss is gathered (``full_tensor``, differentiable)."""
-    loss = model.loss(_on_mesh(model, batch))
+    loss = model.loss(batch)
     return loss.full_tensor() if is_dtensor(loss) else loss
 
 
@@ -90,15 +113,15 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig,
             p.grad = None
         try:
             if microbatches == 1:
-                loss = _mesh_loss(model, batch)
+                loss = _mesh_loss(model, _on_mesh(model, batch))
                 loss.backward()
                 loss = loss.detach()
             else:
-                m = next(iter(batch.values())).shape[0] // microbatches
                 loss = torch.zeros((), dtype=torch.float32,
                                    device=model.device)
                 for i in range(microbatches):
-                    mb = {k: v[i * m:(i + 1) * m] for k, v in batch.items()}
+                    mb = _on_mesh(model, {k: _microbatch(v, i, microbatches)
+                                          for k, v in batch.items()})
                     l_mb = _mesh_loss(model, mb)
                     l_mb.backward()
                     loss = loss + l_mb.detach()
@@ -136,12 +159,18 @@ def make_eval_step(model: Model):
 
 
 def make_prefill_step(model: Model, cache_len: int):
+    """``prefill_step(batch) -> (last-token logits, cache)``."""
     def prefill_step(batch: Dict):
-        return model.prefill(_to_device(batch, model.device), cache_len)
+        batch = _on_mesh(model, _to_device(batch, model.device), "prefill")
+        return model.prefill(batch, cache_len)
     return prefill_step
 
 
 def make_serve_step(model: Model):
-    def serve_step(cache, tokens: torch.Tensor, step: int):
-        return model.decode_step(cache, tokens, step)
+    """``serve_step(cache, tokens, step) -> (logits, cache)``: one decode
+    token (B, 1) at ``step``, the cache written in place."""
+    def serve_step(cache, tokens, step: int):
+        tokens = _on_mesh(model, _to_device({"tokens": tokens},
+                                            model.device), "decode")
+        return model.decode_step(cache, tokens["tokens"], step)
     return serve_step

@@ -42,7 +42,8 @@ def test_every_module_imports_without_jax_or_repro():
               "data.curation", "launch.train", "distributed",
               "distributed.partitioning", "distributed.sharding",
               "distributed.compression", "distributed.pipeline",
-              "launch.mesh"):
+              "launch.mesh", "launch.roofline", "launch.collectives",
+              "launch.dryrun", "launch.report"):
         assert f"repro_torch.{m}" in mods, m
     code = textwrap.dedent(f"""
         import importlib, sys

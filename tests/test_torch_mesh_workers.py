@@ -1,5 +1,6 @@
 """Rank functions of the port's multi-rank twins (``test_torch_distributed``,
-``test_torch_mesh_families``); this module holds no test itself.
+``test_torch_mesh_families``, ``test_torch_mesh_serving``); this module
+holds no test itself.
 
 Each function runs on every rank of a gloo job started by ``run_ranks``
 (spawned processes, a ``file://`` store, so parallel test workers never
@@ -86,9 +87,10 @@ def _full(t):
 
 
 def step_twins(rank, world, cases, ckpt_in, ckpt_out):
-    """For each case {"cfg", "params" (reference tree, numpy), "batch"}:
-    one AdamW step of the port on one rank and on a (2, world/2) mesh
-    from the same weights.  Returns {arch: {"plain": loss, "mesh": loss,
+    """For each case {"cfg", "params" (reference tree, numpy), "batch",
+    optionally "microbatches" and "sequence_parallel"}: one AdamW step of
+    the port on one rank and on a (2, world/2) mesh from the same
+    weights.  Returns {arch: {"plain": loss, "mesh": loss,
     "leaf": max |mesh - plain| over the updated leaves, "placed": the
     number of sharded parameters, "restored"}}.  With
     ``ckpt_in``/``ckpt_out`` given, the first case also restores the
@@ -115,11 +117,14 @@ def step_twins(rank, world, cases, ckpt_in, ckpt_out):
         plain = load_reference_params(build_model(cfg, device="cpu"),
                                       case["params"])
         state = adamw_init(plain)
-        m_plain = make_train_step(plain, opt_cfg)(state, case["batch"])
+        micro = case.get("microbatches", 1)
+        m_plain = make_train_step(plain, opt_cfg, microbatches=micro)(
+            state, case["batch"])
 
         model = load_reference_params(build_model(cfg, device="cpu"),
                                       case["params"])
-        rules = rules_for_arch(cfg, mesh)
+        rules = rules_for_arch(cfg, mesh, sequence_parallel=case.get(
+            "sequence_parallel", False))
         m_state = place_for_training(model, mesh, rules)
         restored = None
         if i == 0 and ckpt_in:
@@ -128,7 +133,8 @@ def step_twins(rank, world, cases, ckpt_in, ckpt_out):
             restored = max(float(np.abs(_full(p) - want[k]).max())
                            for k, p in model.named_parameters())
         with use_rules(rules):
-            m_mesh = make_train_step(model, opt_cfg)(m_state, case["batch"])
+            m_mesh = make_train_step(model, opt_cfg, microbatches=micro)(
+                m_state, case["batch"])
         own = dict(plain.named_parameters())
         leaf = max(float(np.abs(_full(p) - own[k].detach().numpy()).max())
                    for k, p in model.named_parameters())
@@ -179,3 +185,81 @@ def launcher(rank, world, argv):
     from repro_torch.launch.train import main
     out = main(list(argv))
     return [h["loss"] for h in out["history"]]
+
+
+# --------------------------------------------------------------------------- #
+# prefill and decode on a mesh against the single-device run
+# --------------------------------------------------------------------------- #
+
+def _leaf_state(cache):
+    """{entry: (placements, the local tensor's data pointer)} of a placed
+    cache."""
+    return {k: (tuple(v.placements), v.to_local().data_ptr())
+            for k, v in cache.items()}
+
+
+def serve_twins(rank, world, cases):
+    """For each case {"name", "cfg", "params" (reference tree, numpy),
+    "prompt" (numpy batch), "tokens" (numpy (n, B, 1)), "cache_len"}:
+    prefill then ``n`` decode steps through ``runtime.steps`` at float32,
+    once on this rank alone and once on a (2, world/2) mesh under the
+    decode cell's rules, from the reference's weights.  Returns {name:
+    {"err": the largest |mesh - plain| over every step's logits,
+    "logits": the mesh's logits of every step (numpy, gathered), "rules":
+    the cache's rules, "placed": the sharded cache entries, "kept": the
+    cache entries that kept their placement and storage through every
+    decode step (checked against ``input_pspecs`` of
+    ``cache_logical_axes`` after prefill), "entries"}}."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed.partitioning import placements, use_rules
+    from repro_torch.distributed.sharding import (input_pspecs, place_model,
+                                                  rules_for_arch)
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import build_model, common
+    from repro_torch.models.convert import load_reference_params
+    from repro_torch.runtime.steps import make_prefill_step, make_serve_step
+
+    common.DTYPE = torch.float32
+    mesh = make_local_mesh(2, world // 2, device="cpu")
+    out = {}
+    for case in cases:
+        cfg, n_cache = case["cfg"], case["cache_len"]
+        toks = case["tokens"]
+        start = sum(v.shape[1] for k, v in case["prompt"].items()
+                    if k in ("tokens", "patches"))
+
+        plain = load_reference_params(build_model(cfg, device="cpu"),
+                                      case["params"])
+        logits, cache = make_prefill_step(plain, n_cache)(case["prompt"])
+        want = [logits]
+        for j in range(toks.shape[0]):
+            logits, cache = make_serve_step(plain)(cache, toks[j], start + j)
+            want.append(logits)
+
+        model = load_reference_params(build_model(cfg, device="cpu"),
+                                      case["params"])
+        shape = ShapeConfig("serve", n_cache, toks.shape[1], "decode")
+        rules = rules_for_arch(cfg, mesh, shape)
+        place_model(model, mesh, rules)
+        specs = input_pspecs(model.cache_logical_axes(toks.shape[1], n_cache),
+                             rules)
+        with use_rules(rules):
+            logits, cache = make_prefill_step(model, n_cache)(case["prompt"])
+            got = [logits.full_tensor()]
+            kept = {k for k, v in cache.items()
+                    if list(v.placements) == placements(specs[k], mesh)}
+            state = _leaf_state(cache)
+            for j in range(toks.shape[0]):
+                logits, cache = make_serve_step(model)(cache, toks[j],
+                                                       start + j)
+                got.append(logits.full_tensor())
+                now = _leaf_state(cache)
+                kept &= {k for k in now if now[k] == state[k]}
+        err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+        out[case["name"]] = {
+            "err": err, "logits": [g.numpy() for g in got],
+            "entries": sorted(cache), "kept": sorted(kept),
+            "placed": sorted(k for k, v in cache.items()
+                             if any(p.is_shard() for p in v.placements)),
+            "rules": {k: rules[k] for k in ("batch", "kv_len", "kv_heads")}}
+    return out
