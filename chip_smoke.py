@@ -19,13 +19,14 @@ Phases, one line of output each:
             of the last two at n = 2^24 + 1, where the float32 row-id test
             drops row 2^24;
   lm_serve  the LM serving path, once for each of h2o-danube-3-4b (24
-            layers, 3.84B parameters), zamba2-2.7b (54 Mamba2 layers and
-            2 shared attention blocks, 2.45B), minicpm3-4b (62 MLA
-            layers, 4.07B), each at full width and depth, and
+            layers, 3.84B parameters) at full width and depth,
+            zamba2-2.7b (30 of its 54 Mamba2 layers, both shared
+            attention blocks) and minicpm3-4b (31 of its 62 MLA layers)
+            at full width, cut for the run's time limit, and
             mixtral-8x7b at full width and 8 of its 32 layers (11.74B;
             the full depth does not fit one card), with bfloat16
             weights, behind a Server whose COAX router runs on the device
-            backend; 512 requests (384 for zamba2 and minicpm3) drawn as
+            backend; 512 requests (288 for zamba2 and minicpm3) drawn as
             launch/serve.py draws them,
             drained in waves of 8; every admission equal to a
             numpy-backend twin router, one plan dispatch per admission on
@@ -58,9 +59,16 @@ Phases, one line of output each:
             counted on fake tensors (a subprocess started at the top of the
             run, one fake rank) and on the card by the same counter, the
             FLOPs equal; the predicted peak beside max_memory_allocated, the
-            roofline bound beside the step's ms; and the full train_4k cell
-            on the 256-rank fake mesh (a subprocess since the top of the
-            run) with status ok;
+            roofline bound beside the step's ms; the full train_4k cell
+            on the 256-rank fake mesh, and two cells at probe depth that
+            torch 2.11 refuses unless the mesh's products run locally
+            (qwen2-vl-2b prefill_32k, context parallel; mamba2-130m
+            long_500k), each a subprocess since the top of the run, each
+            with status ok;
+  examples  the six example twins (examples/*_torch.py) on the card, eight
+            runs (serve_requests_torch.py also --durable and --failover;
+            train_lm_torch.py at --steps 20), each a subprocess that must
+            exit 0; wall seconds, first and last lines printed;
   main      the serving path at real size: 10M airline rows, 512 knn range
             queries through QueryServer in 64-query waves, inserts and
             deletes between waves, a compaction, one more wave, then one
@@ -1991,16 +1999,25 @@ LM_ARCH, LM_SEED, LM_REQUESTS = "h2o-danube-3-4b", 0, 512
 # pending), fewer waves of the CPU's slow bfloat16 products
 LM_REHEARSE_REQUESTS = 288
 LM_SERVE_ARCHS = (LM_ARCH, "zamba2-2.7b", "minicpm3-4b", "mixtral-8x7b")
-# the two slowest host-bound decoders serve 384 requests (still past the
-# router's 256-pending index build): on a slow host their 512 took 86.9 and
-# 114.7 s of a 970.1 s smoke on an H100 80GB HBM3 at 700 W (PERF.md §6)
-LM_SERVE_REQUESTS = {"zamba2-2.7b": 384, "minicpm3-4b": 384}
+# the two slowest host-bound decoders serve 288 requests (still past the
+# router's 256-pending index build): on a slow host their 384 took 75.6 and
+# 101.5 s of a 1,062.7 s smoke on an H100 80GB HBM3 at 700 W (PERF.md §4)
+LM_SERVE_REQUESTS = {"zamba2-2.7b": 288, "minicpm3-4b": 288}
 # archs served at a cut depth on one card: mixtral-8x7b's 32 layers hold
 # 46.57B parameters, 93.1 GB of bfloat16 weights, past the card's 80 GB;
 # 8 layers at full width hold 23.5 GB, and their float32 masters (47.0
 # GB, alive while they are initialised and cast) fit, where 16 layers'
-# (94 GB) would not
-SERVE_DEPTH = {"mixtral-8x7b": 8}
+# (94 GB) would not.  zamba2-2.7b and minicpm3-4b, the two slowest
+# host-bound decoders, serve at about half their depth (zamba2 five of its
+# nine segments of 6 Mamba2 layers, both shared blocks still run) so the
+# smoke keeps its margin under its time limit: at full depth and 288
+# requests a slow host took 90.7 and 103.0 s of a 1,119.5 s run on an
+# H100 80GB HBM3 at 700 W (PERF.md §4)
+SERVE_DEPTH = {"mixtral-8x7b": 8, "zamba2-2.7b": 30, "minicpm3-4b": 31}
+# why each arch of SERVE_DEPTH is cut
+DEPTH_CUT = {"mixtral-8x7b": "the full depth's weights do not fit one card",
+             "zamba2-2.7b": "the smoke's time limit",
+             "minicpm3-4b": "the smoke's time limit"}
 LM_SERVE = dict(batch_size=8, max_new_tokens=16, cache_len=512, eos_token=0)
 LM_TOL = dict(rtol=0.05, atol=0.08)
 PROFILED_STEPS = 4            # decode steps of the first wave profiled
@@ -2221,7 +2238,8 @@ def lm_profile(torch, fn, reps):
 
 def lm_serve_phase(torch, dev, card_line, arch=LM_ARCH):
     """The LM serving path on the card for ``arch``: ``build_model`` at
-    full width and depth (``SERVE_DEPTH`` cuts mixtral's; 2 layers at
+    full width and depth (``SERVE_DEPTH`` cuts mixtral's, zamba2's and
+    minicpm3's; 2 layers at
     width 64 in the rehearsal, a hybrid one segment of 6, SSD and latent
     dims cut), float32 masters from a seeded generator cast once to
     bfloat16, a ``Server`` whose router runs on the device backend, 512
@@ -2279,9 +2297,8 @@ def lm_serve_phase(torch, dev, card_line, arch=LM_ARCH):
     init_peak = torch.cuda.max_memory_allocated() if cuda else 0
     if cuda:                    # the serving peak, apart from the masters'
         torch.cuda.reset_peak_memory_stats()
-    cut = (f" (cut from {get_config(arch).n_layers} layers: the full depth's "
-           f"weights do not fit one card)" if arch in SERVE_DEPTH and cuda
-           else "")
+    cut = (f" (cut from {get_config(arch).n_layers} layers: "
+           f"{DEPTH_CUT[arch]})" if arch in SERVE_DEPTH and cuda else "")
     say("lm_serve", f"{cfg.name}: {describe(cfg)}{cut}; {n_params:,} "
         f"parameters ({model.active_param_count():,} active a token), "
         f"weights {w_bytes / 1e9:.3f} GB (float32 masters cast once: "
@@ -3442,27 +3459,40 @@ def mesh_phase(torch, dev, card_line):
 # 2-layer, width-64 step in process and runs no cell.
 DRYRUN_STEP = dict(batch=8, seq=256)
 DRYRUN_REHEARSE = dict(batch=2, seq=32)
-DRYRUN_LIMIT_S = 900            # both subprocesses, from the top of the run
+DRYRUN_LIMIT_S = 900            # every subprocess, from the top of the run
 DRYRUN_OUT = ROOT / "build" / "dryrun_smoke"
 
 
+# the dry run's cells beside the card, one subprocess each, all started at
+# the top of the run: the card's step on one fake rank, the h2o train_4k
+# cell on the 256-rank fake mesh, and two cells at probe depth whose
+# products need DTensor views that torch 2.11 refuses unless they run as
+# local products (``partitioning.matmul``): the cheapest context-parallel
+# cell (qwen2-vl-2b, 12 heads over 16 ranks) and the cheapest SSM cell
+DRYRUN_CELLS = {
+    "card": (LM_ARCH, "train_4k", "local", "card",
+             ["--batch", str(DRYRUN_STEP["batch"]), "--seq",
+              str(DRYRUN_STEP["seq"]), "--microbatches", "1", "--fsdp", "0",
+              "--sp", "0", "--probe", "0"]),
+    "cell": (LM_ARCH, "train_4k", "single", "baseline", []),
+    "context_parallel": ("qwen2-vl-2b", "prefill_32k", "single", "probe",
+                         ["--probe-depth", "1"]),
+    "ssm": ("mamba2-130m", "long_500k", "single", "probe",
+            ["--probe-depth", "1"]),
+}
+
+
 def start_dryrun():
-    """Start the two dry-run subprocesses (the card's step on one fake
-    rank, and the train_4k cell on the 256-rank fake mesh); returns
+    """Start the dry run's subprocesses (``DRYRUN_CELLS``); returns
     {name: (process, log path)} and the start time."""
     shutil.rmtree(DRYRUN_OUT, ignore_errors=True)
     DRYRUN_OUT.mkdir(parents=True)
     env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
-    base = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-            LM_ARCH, "--shape", "train_4k", "--out", str(DRYRUN_OUT)]
-    cmds = {"card": base + ["--mesh", "local", "--batch",
-                            str(DRYRUN_STEP["batch"]), "--seq",
-                            str(DRYRUN_STEP["seq"]), "--microbatches", "1",
-                            "--fsdp", "0", "--sp", "0", "--probe", "0",
-                            "--tag", "card"],
-            "cell": base + ["--mesh", "single"]}
     procs = {}
-    for name, cmd in cmds.items():
+    for name, (arch, shape, mesh, tag, extra) in DRYRUN_CELLS.items():
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--mesh", mesh, "--tag", tag,
+               "--out", str(DRYRUN_OUT)] + extra
         log = DRYRUN_OUT / f"{name}.log"
         with open(log, "w") as f:
             procs[name] = (subprocess.Popen(cmd, stdout=f,
@@ -3482,9 +3512,10 @@ def stop_dryrun(dry):
 
 
 def join_dryrun(dry):
-    """Wait for both subprocesses (until ``DRYRUN_LIMIT_S`` after their
+    """Wait for every subprocess (until ``DRYRUN_LIMIT_S`` after their
     start); returns {name: the cell's JSON} and the seconds waited here.
-    A subprocess that fails or runs out of time fails the phase."""
+    A subprocess that fails, runs out of time or writes a cell whose
+    status is not "ok" fails the phase."""
     procs, t_start = dry
     t0 = time.perf_counter()
     cells = {}
@@ -3497,9 +3528,8 @@ def join_dryrun(dry):
             proc.wait()
             raise AssertionError(f"the dry run's {name} subprocess ran past "
                                  f"{DRYRUN_LIMIT_S} s")
-        tag = "card" if name == "card" else "baseline"
-        mesh = "local" if name == "card" else "single"
-        path = DRYRUN_OUT / f"{LM_ARCH}__train_4k__{mesh}__{tag}.json"
+        arch, shape, mesh, tag, _ = DRYRUN_CELLS[name]
+        path = DRYRUN_OUT / f"{arch}__{shape}__{mesh}__{tag}.json"
         if rc != 0 or not path.exists():
             raise AssertionError(f"the dry run's {name} subprocess exited "
                                  f"{rc}: {log.read_text()[-2000:]}")
@@ -3638,9 +3668,84 @@ def dryrun_phase(torch, dev, card_line, dry):
         say("dryrun", f"dry-run cell {LM_ARCH} train_4k single (256 fake "
             f"ranks): status {cell['status']}, traced in "
             f"{cell['compile_s']} s, {cell['cost']['method']}; "
-            f"{report.fmt_row(cell)}; both subprocesses joined "
+            f"{report.fmt_row(cell)}; every subprocess joined "
             f"{waited:.1f} s after the mesh phase")
+        for name in ("context_parallel", "ssm"):
+            c = cells[name]
+            say("dryrun", f"probe-depth cell ({name.replace('_', '-')}) "
+                f"{c['arch']} {c['shape']} single: status {c['status']}, "
+                f"traced in {c['compile_s']} s, {c['cost']['method']}, "
+                f"{c['cost']['flops_per_device']:.6e} FLOPs a device "
+                f"(torch {torch.__version__})")
     say("dryrun", f"phase {time.perf_counter() - t_phase:.1f} s")
+
+
+# the examples phase: each twin as a user runs it (the reference's sizes;
+# train_lm's quick preset cut to 20 steps), all at once; its checkpoint
+# directory and every temporary file under EXAMPLES_OUT, removed after
+EXAMPLES_OUT = ROOT / "build" / "examples_smoke"
+EXAMPLE_RUNS = (
+    ("quickstart", ["quickstart_torch.py"]),
+    ("batch_queries", ["batch_queries_torch.py"]),
+    ("coax_curation", ["coax_curation_torch.py"]),
+    ("telemetry", ["telemetry_torch.py"]),
+    ("serve_requests", ["serve_requests_torch.py"]),
+    ("serve_requests --durable", ["serve_requests_torch.py", "--durable"]),
+    ("serve_requests --failover", ["serve_requests_torch.py", "--failover"]),
+    ("train_lm --steps 20", ["train_lm_torch.py", "--steps", "20",
+                             "--ckpt-dir", str(EXAMPLES_OUT / "ckpt")]),
+)
+EXAMPLES_PARALLEL = 8            # one a CPU core of the card's host
+EXAMPLE_LIMIT_S = 300           # one run
+
+
+def examples_phase(dev, card_line):
+    """Run every invocation of ``EXAMPLE_RUNS`` on ``dev`` as a subprocess
+    (``EXAMPLES_PARALLEL`` at a time); each must exit 0.  Prints each
+    run's wall seconds and its first and last lines of output.  The
+    rehearsal runs each twin's ``--help`` instead (the reference's sizes
+    are the card's; ``tests/test_torch_examples.py`` runs the twins small
+    on the CPU)."""
+    from concurrent.futures import ThreadPoolExecutor
+    t_phase = time.perf_counter()
+    shutil.rmtree(EXAMPLES_OUT, ignore_errors=True)
+    (EXAMPLES_OUT / "tmp").mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC),
+               TMPDIR=str(EXAMPLES_OUT / "tmp"))
+    runs = (EXAMPLE_RUNS if dev != "cpu" else
+            [(f"{script} --help", [script, "--help"]) for script in
+             dict.fromkeys(argv[0] for _, argv in EXAMPLE_RUNS)])
+
+    def one(argv):
+        args = argv if "--help" in argv else argv + ["--device", dev]
+        t0 = time.perf_counter()
+        try:
+            out = subprocess.run([sys.executable, str(ROOT / "examples"
+                                                      / args[0])] + args[1:],
+                                 cwd=ROOT, env=env, capture_output=True,
+                                 text=True, timeout=EXAMPLE_LIMIT_S)
+        except subprocess.TimeoutExpired:
+            return None, time.perf_counter() - t0
+        return out, time.perf_counter() - t0
+    try:
+        with ThreadPoolExecutor(EXAMPLES_PARALLEL) as pool:
+            done = list(pool.map(one, [argv for _, argv in runs]))
+        for (name, _), (out, wall) in zip(runs, done):
+            if out is None:
+                raise AssertionError(f"examples: {name} ran past "
+                                     f"{EXAMPLE_LIMIT_S} s")
+            lines = out.stdout.strip().splitlines() or [""]
+            say("examples", f"{name}: exit {out.returncode}, {wall:.1f} s "
+                f"wall; first: {lines[0]!r}; last: {lines[-1]!r}")
+            if out.returncode != 0:
+                raise AssertionError(f"examples: {name} exited "
+                                     f"{out.returncode}: "
+                                     f"{out.stderr[-3000:]}")
+    finally:
+        shutil.rmtree(EXAMPLES_OUT, ignore_errors=True)
+    say("examples", f"{len(runs)} runs, {EXAMPLES_PARALLEL} at a time, "
+        f"every one exit 0; phase {time.perf_counter() - t_phase:.1f} s "
+        f"({card_line})")
 
 
 def main(argv=None) -> int:
@@ -3671,6 +3776,7 @@ def main(argv=None) -> int:
         lm_train_phase(torch, "cpu", "no card")
         mesh_phase(torch, "cpu", "no card")
         dryrun_phase(torch, "cpu", "no card", None)
+        examples_phase("cpu", "no card")
         run = main_phase(torch, "cpu", REHEARSE)
         segs = segments_phase(torch, run, REHEARSE, "cpu")
         ops_phase(torch, run, segs, REHEARSE, "cpu")
@@ -3722,6 +3828,8 @@ def card_run(torch, card_line, kind, count, dry, t_start) -> int:
     dryrun_phase(torch, "cuda", card_line, dry)
     release_lm(torch, "dryrun")
     mark("dryrun")
+    examples_phase("cuda", card_line)
+    mark("examples")
     run = main_phase(torch, "cuda", cfg)
     mark("main")
     segs = segments_phase(torch, run, cfg, "cuda")

@@ -19,6 +19,7 @@ per thread.
 from __future__ import annotations
 
 import contextlib
+import math
 import threading
 from typing import Dict, Optional, Sequence, Tuple, Union
 
@@ -44,6 +45,7 @@ __all__ = [
     "set_at",
     "all_reduce_over",
     "replicated_dims",
+    "matmul",
 ]
 
 MeshAxes = Union[None, str, Tuple[str, ...]]
@@ -357,3 +359,79 @@ def shard(x: torch.Tensor, *logical_axes: Optional[str]) -> torch.Tensor:
     if list(x.placements) == want:
         return x
     return x.redistribute(mesh, want)
+
+
+def _merges_cleanly(t: torch.Tensor, dims) -> bool:
+    """Whether a ``view`` that merges the consecutive ``dims`` of a
+    DTensor ``t`` into one (or splits that one back) keeps t's
+    placement: of those dims only the first may be sharded, and into
+    equal blocks."""
+    from torch.distributed.tensor import Shard
+    mesh = t.device_mesh
+    for i, p in enumerate(t.placements):
+        if isinstance(p, Shard) and p.dim in dims and (
+                p.dim != dims[0] or t.shape[p.dim] % mesh.size(i)):
+            return False
+    return True
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor, contract: int = 1
+           ) -> torch.Tensor:
+    """``x (..., *k) @ w (*k, *out)`` -> ``(..., *out)``, contracting x's
+    last ``contract`` dims with w's first ``contract``, as one ``@`` over
+    the flattened dims.
+
+    DTensor runs that ``@`` through views of its operands and result,
+    and a view cannot merge two sharded dims, nor a dim sharded into
+    unequal blocks (torch 2.11 refuses both; later releases plan them
+    as ``_StridedShard``).  Where a view would, the product runs as each
+    rank's local product instead.  Per mesh dim: a shard of one of w's
+    output dims is kept (x gathered there, x's gradient a partial sum);
+    else a shard of one of x's leading dims is kept (w gathered, w's
+    gradient a partial sum); else a shard of the same contracted dim in
+    both is kept (the result a partial sum); else both are gathered.
+    The result is rebuilt from the local products with its global shape
+    (shards may be uneven)."""
+    lead, out = x.ndim - contract, w.shape[contract:]
+    x, w = replicate_like(x, w), replicate_like(w, x)
+    if not is_dtensor(x) or (
+            _merges_cleanly(x, tuple(range(lead)))
+            and _merges_cleanly(x, tuple(range(lead, x.ndim)))
+            and _merges_cleanly(w, tuple(range(contract)))
+            and _merges_cleanly(w, tuple(range(contract, w.ndim)))):
+        y = x.reshape(*x.shape[:lead], -1) @ w.reshape(-1, math.prod(out))
+        return y.reshape(*x.shape[:lead], *out)
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh = w.device_mesh
+    xp, wp, yp, x_grad, w_grad = [], [], [], [], []
+    for px, pw in zip(x.placements, w.placements):
+        sx = px.dim if isinstance(px, Shard) else None
+        sw = pw.dim if isinstance(pw, Shard) else None
+        if sw is not None and sw >= contract:             # w's output dim
+            xp.append(Replicate())
+            wp.append(pw)
+            yp.append(Shard(lead + sw - contract))
+            x_grad.append(Partial())
+            w_grad.append(pw)
+        elif sx is not None and sx < lead:                # x's leading dim
+            xp.append(px)
+            wp.append(Replicate())
+            yp.append(px)
+            x_grad.append(px)
+            w_grad.append(Partial())
+        elif sx is not None and sx - lead == sw:          # one contracted dim
+            xp.append(px)
+            wp.append(pw)
+            yp.append(Partial())
+            x_grad.append(px)
+            w_grad.append(pw)
+        else:
+            for p in (xp, wp, yp, x_grad, w_grad):
+                p.append(Replicate())
+    xl = x.redistribute(mesh, xp).to_local(grad_placements=x_grad)
+    wl = w.redistribute(mesh, wp).to_local(grad_placements=w_grad)
+    y = matmul(xl, wl, contract)
+    shape = tuple(x.shape[:lead]) + tuple(out)
+    return DTensor.from_local(y, mesh, yp, run_check=False, shape=shape,
+                              stride=torch.empty(shape, device="meta")
+                              .stride())

@@ -47,6 +47,7 @@ Usage:
   python -m repro_torch.launch.dryrun --arch gemma2-27b --shape train_4k --mesh single
   python -m repro_torch.launch.dryrun --all            # every cell, both meshes
   python -m repro_torch.launch.dryrun --all --jobs 4   # parallel subprocesses
+  python -m repro_torch.launch.dryrun --all --probe-depth 1 --jobs 8  # quick
   python -m repro_torch.launch.dryrun --arch h2o-danube-3-4b --shape train_4k \
       --mesh local --batch 8 --seq 256 --microbatches 1 --probe 0  # one card
 
@@ -476,15 +477,19 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
              fsdp: bool = True, sequence_parallel: bool = None,
              expert_parallel: bool = True, remat: str = None,
              attn_chunk: int = 1024, tag: str = "baseline",
-             probe: bool = False, microbatches: int = None,
-             split_cache: bool = False, ssd_chunk: int = None,
-             capacity_factor: float = None, batch: int = None,
-             seq: int = None, out_dir: Path = OUT_DIR) -> dict:
+             probe: bool = False, probe_depth: bool = False,
+             microbatches: int = None, split_cache: bool = False,
+             ssd_chunk: int = None, capacity_factor: float = None,
+             batch: int = None, seq: int = None,
+             out_dir: Path = OUT_DIR) -> dict:
     """One cell on a fake group of 256 ("single") or 512 ("multi") ranks,
     or of one rank ("local", the 1 x 1 mesh of one card): the
     reference's result keys, ``status`` "ok" or "skipped".  ``batch`` and
-    ``seq`` override the shape's global batch and length.  The group is
-    destroyed on return, also on error."""
+    ``seq`` override the shape's global batch and length; ``probe_depth``
+    builds the config at its first probe depth (``_probe_depths``: one
+    layer pattern, a hybrid's attention period, one encoder and decoder
+    layer), a quick check that every layer kind runs on the mesh.  The
+    group is destroyed on return, also on error."""
     cfg = get_config(arch)
     if remat is not None:
         cfg = dataclasses.replace(cfg, remat=remat)
@@ -496,6 +501,8 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
         cfg = dataclasses.replace(cfg, capacity_factor=capacity_factor)
     if attn_chunk != 1024:
         cfg = dataclasses.replace(cfg, attn_chunk=attn_chunk)
+    if probe_depth:
+        cfg = _probe_depths(cfg)[0]
     shape = SHAPES[shape_name]
     if batch or seq:
         shape = dataclasses.replace(shape, global_batch=batch or
@@ -560,7 +567,8 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
             "transcendentals": (cost or {}).get(
                 "transcendentals", scanbody["transcendentals"]),
             "method": (cost or {}).get(
-                "method", f"eager full depth (L={cfg.n_layers}, "
+                "method", f"eager {'probe' if probe_depth else 'full'} "
+                          f"depth (L={cfg.n_layers}, "
                           f"microbatches={microbatches})"),
             "top_ops": full["top_ops"],
         },
@@ -606,6 +614,8 @@ def main(argv=None):
     ap.add_argument("--probe", type=int, default=0,
                     help="1: costs by the reference's depth extrapolation "
                          "(probe_costs) in place of the full-depth count")
+    ap.add_argument("--probe-depth", type=int, default=0,
+                    help="1: build the config at its first probe depth")
     ap.add_argument("--microbatches", type=int, default=None)
     ap.add_argument("--split-cache", type=int, default=0)
     ap.add_argument("--ssd-chunk", type=int, default=None)
@@ -631,6 +641,7 @@ def main(argv=None):
                    "--arch", a, "--shape", s, "--mesh", m, "--tag", args.tag,
                    "--fsdp", str(args.fsdp), "--sp", str(args.sp),
                    "--ep", str(args.ep), "--probe", str(args.probe),
+                   "--probe-depth", str(args.probe_depth),
                    "--out", str(out_dir)]
             if args.remat:
                 cmd += ["--remat", args.remat]
@@ -649,7 +660,9 @@ def main(argv=None):
                                           else None),
                        expert_parallel=bool(args.ep), remat=args.remat,
                        attn_chunk=args.attn_chunk, tag=args.tag,
-                       probe=bool(args.probe), microbatches=args.microbatches,
+                       probe=bool(args.probe),
+                       probe_depth=bool(args.probe_depth),
+                       microbatches=args.microbatches,
                        split_cache=bool(args.split_cache),
                        ssd_chunk=args.ssd_chunk,
                        capacity_factor=args.capacity_factor,

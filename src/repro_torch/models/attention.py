@@ -26,8 +26,8 @@ from typing import Mapping, Optional, Tuple
 import torch
 
 from ..distributed.partitioning import (all_reduce_over, is_dtensor,
-                                        local_offsets, replicate_like, set_at,
-                                        shard)
+                                        local_offsets, matmul, replicate_like,
+                                        set_at, shard)
 from .common import (_w, dense_init, mrope_tables, rope_tables, rotate,
                      softcap)
 
@@ -298,9 +298,10 @@ def _project_qkv(params: Mapping[str, torch.Tensor], x, n_heads, n_kv,
                  head_dim):
     b, s, _ = x.shape
     x = shard(x, "batch", "attn_seq", "embed")   # sequence parallel: gather
-    q = _split_heads(x @ _w(params, "wq", x), n_heads, "attn_seq", "heads")
-    k = _split_heads(x @ _w(params, "wk", x), n_kv, None, "kv_heads")
-    v = _split_heads(x @ _w(params, "wv", x), n_kv, None, "kv_heads")
+    q = _split_heads(matmul(x, _w(params, "wq", x)), n_heads, "attn_seq",
+                     "heads")
+    k = _split_heads(matmul(x, _w(params, "wk", x)), n_kv, None, "kv_heads")
+    v = _split_heads(matmul(x, _w(params, "wv", x)), n_kv, None, "kv_heads")
     q = shard(q, "batch", "attn_seq", "heads", None)
     k = shard(k, "batch", None, "kv_heads", None)
     v = shard(v, "batch", None, "kv_heads", None)
@@ -335,7 +336,7 @@ def gqa_forward(
                             attn_softcap=attn_softcap, chunk=chunk,
                             scale=query_scale)
     out = shard(out, "batch", "attn_seq", "heads", None)
-    proj = out.reshape(b, s, n_heads * head_dim) @ _w(params, "wo", x)
+    proj = matmul(out.reshape(b, s, n_heads * head_dim), _w(params, "wo", x))
     return shard(proj, "batch", "seq", "embed"), (k, v)
 
 
@@ -432,7 +433,7 @@ def mla_init(generator, d_model: int, n_heads: int, *, q_lora: int,
 def _mla_q(params, x, n_heads, nope_dim, rope_dim):
     """(q_nope (b, s, H, nope), q_pe (b, s, H, rope)), not yet rotated."""
     b, s, _ = x.shape
-    q = (x @ _w(params, "w_dq", x)) @ _w(params, "w_uq", x)
+    q = matmul(matmul(x, _w(params, "w_dq", x)), _w(params, "w_uq", x))
     q = _split_heads(q, n_heads, "attn_seq", "heads")
     return q[..., :nope_dim], q[..., nope_dim:]
 
@@ -443,11 +444,12 @@ def _mla_qkv(params, x, n_heads, nope_dim, rope_dim, v_dim, rope_theta):
     ``k_pe`` (b, s, rope) the decode cache keeps."""
     b, s, _ = x.shape
     q_nope, q_pe = _mla_q(params, x, n_heads, nope_dim, rope_dim)
-    c_kv = x @ _w(params, "w_dkv", x)                       # latent
-    k_pe = x @ _w(params, "w_kpe", x)                       # shared by heads
-    k_nope = _split_heads(c_kv @ _w(params, "w_uk", x), n_heads, None,
+    c_kv = matmul(x, _w(params, "w_dkv", x))                # latent
+    k_pe = matmul(x, _w(params, "w_kpe", x))                # shared by heads
+    k_nope = _split_heads(matmul(c_kv, _w(params, "w_uk", x)), n_heads, None,
                           "heads")
-    v = _split_heads(c_kv @ _w(params, "w_uv", x), n_heads, None, "heads")
+    v = _split_heads(matmul(c_kv, _w(params, "w_uv", x)), n_heads, None,
+                     "heads")
 
     pos = torch.arange(s, device=x.device)[None, :]
     tables = rope_tables(pos, rope_dim, rope_theta)
@@ -472,7 +474,7 @@ def mla_forward(params, x, *, n_heads: int, q_lora: int, kv_lora: int,
     scale = 1.0 / math.sqrt(nope_dim + rope_dim)
     out = chunked_attention(q, k, v, causal=True, chunk=chunk, scale=scale)
     out = shard(out, "batch", "attn_seq", "heads", None)
-    proj = out.reshape(b, s, n_heads * v_dim) @ _w(params, "wo", x)
+    proj = matmul(out.reshape(b, s, n_heads * v_dim), _w(params, "wo", x))
     return shard(proj, "batch", "seq", "embed"), (c_kv, k_pe)
 
 
@@ -555,11 +557,12 @@ def cross_attn_forward(params, x, enc_kv, *, n_heads: int, n_kv: int,
     ``min(chunk, Se)``; uses ``wq`` and ``wo`` of ``params``."""
     b, s, _ = x.shape
     k, v = enc_kv
-    q = _split_heads(x @ _w(params, "wq", x), n_heads, "attn_seq", "heads")
+    q = _split_heads(matmul(x, _w(params, "wq", x)), n_heads, "attn_seq",
+                     "heads")
     q = shard(q, "batch", "attn_seq", "heads", None)
     out = chunked_attention(q, k, v, causal=False,
                             chunk=min(chunk, k.shape[1]))
-    proj = out.reshape(b, s, n_heads * head_dim) @ _w(params, "wo", x)
+    proj = matmul(out.reshape(b, s, n_heads * head_dim), _w(params, "wo", x))
     return shard(proj, "batch", "seq", "embed")
 
 
@@ -568,8 +571,8 @@ def cross_kv(params, enc_out, *, n_kv: int, head_dim: int):
     from ``wk`` and ``wv`` of ``params``: computed once a prompt, the
     decode steps' ``ck``/``cv`` caches."""
     b, s, _ = enc_out.shape
-    k = _split_heads(enc_out @ _w(params, "wk", enc_out), n_kv, None,
+    k = _split_heads(matmul(enc_out, _w(params, "wk", enc_out)), n_kv, None,
                      "kv_heads")
-    v = _split_heads(enc_out @ _w(params, "wv", enc_out), n_kv, None,
+    v = _split_heads(matmul(enc_out, _w(params, "wv", enc_out)), n_kv, None,
                      "kv_heads")
     return k, v

@@ -43,7 +43,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..distributed.partitioning import (is_dtensor, local_offsets,
+from ..distributed.partitioning import (is_dtensor, local_offsets, matmul,
                                         replicate_like, shard)
 
 __all__ = ["DTYPE", "PARAM_DTYPE", "dense_init", "embedding_init",
@@ -342,7 +342,7 @@ def embed(params_w: torch.Tensor, tokens: torch.Tensor,
 
 def unembed(params_w: torch.Tensor, x: torch.Tensor,
             cap: Optional[float] = None):
-    logits = x @ params_w.to(x.dtype).T
+    logits = matmul(x, params_w.to(x.dtype).T)
     return shard(softcap(logits.float(), cap), "batch", "logit_seq", "vocab")
 
 

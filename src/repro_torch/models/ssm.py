@@ -24,9 +24,8 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from ..distributed.partitioning import (is_dtensor, replicate_like,
-                                        replicated, replicated_dims, set_at,
-                                        shard)
+from ..distributed.partitioning import (is_dtensor, matmul, replicate_like,
+                                        set_at, shard)
 from .common import _empty, _w, dense_init, silu
 
 __all__ = ["CONV_K", "mamba2_init", "ssd_chunked", "mamba2_forward",
@@ -96,71 +95,68 @@ def mamba2_init(generator: Optional[torch.Generator], d_model: int, *,
     return params
 
 
-def _unaligned(w: torch.Tensor, merged) -> bool:
-    """Whether a DTensor weight shards one of its ``merged`` (H, P) dims
-    over more ranks than divide its H heads: DTensor would shard the
-    merged H * P dim (or its gradient) in even chunks, which do not split
-    back into whole heads."""
-    if not is_dtensor(w):
-        return False
-    from torch.distributed.tensor import Shard
-    h = w.shape[merged[0]]
-    return any(isinstance(p, Shard) and p.dim in merged
-               and h % w.device_mesh.size(i)
-               for i, p in enumerate(w.placements))
-
-
-def _local_proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x (..., d) @ w (d, H, P)`` of DTensors as each rank's local
-    product (for ``_unaligned`` weights): w gathered over ``d``, x over
-    ``d`` and on every mesh dim that shards w's (H, P); the result keeps
-    x's leading shards and w's (H, P) shards.  The gradients are the
-    partial sums they are where a rank saw part of the contraction's
-    partners (``grad_placements``)."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
-    mesh, lead = w.device_mesh, x.ndim - 1
-    x = replicate_like(x, w)
-    wp, xp, yp, w_grad, x_grad = [], [], [], [], []
-    for i, (pw, px) in enumerate(zip(w.placements, x.placements)):
-        if isinstance(pw, Shard) and pw.dim >= 1:
-            wp.append(pw)
-            xp.append(Replicate())
-            yp.append(Shard(lead + pw.dim - 1))
-            w_grad.append(pw)
-            x_grad.append(Partial())
-        else:
-            keep = isinstance(px, Shard) and px.dim < lead
-            wp.append(Replicate())
-            xp.append(px if keep else Replicate())
-            yp.append(px if keep else Replicate())
-            w_grad.append(Partial() if keep else Replicate())
-            x_grad.append(px if keep else Replicate())
-    wl = w.redistribute(mesh, wp).to_local(grad_placements=w_grad)
-    xl = x.redistribute(mesh, xp).to_local(grad_placements=x_grad)
-    y = (xl @ wl.reshape(wl.shape[0], -1)).reshape(*xl.shape[:-1],
-                                                   *wl.shape[1:])
-    shape = tuple(x.shape[:-1]) + tuple(w.shape[1:])
-    return DTensor.from_local(y, mesh, yp, run_check=False, shape=shape,
-                              stride=torch.empty(shape, device="meta")
-                              .stride())
-
-
-def _out_proj(y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``y (..., H, P) @ w (H, P, d)`` over the flattened (H, P) dims; an
-    ``_unaligned`` weight is gathered first (y with it)."""
-    if _unaligned(w, (0, 1)):
-        y, w = replicated_dims(y, (y.ndim - 2, y.ndim - 1)), replicated(w)
-    return y.reshape(*y.shape[:-2], -1) @ w.reshape(-1, w.shape[-1])
-
-
 def _proj(x: torch.Tensor, params: Params, name: str) -> torch.Tensor:
     """``x (..., d) @ params[name] (d, *out)`` -> ``(..., *out)``, the
     weight cast to the activation dtype."""
-    w = _w(params, name, x)
-    if w.ndim > 2 and _unaligned(w, (1, 2)):
-        return _local_proj(x, w)
-    return (x @ w.reshape(w.shape[0], -1)).reshape(*x.shape[:-1],
-                                                   *w.shape[1:])
+    return matmul(x, _w(params, name, x))
+
+
+def _out_proj(y: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``y (..., H, P) @ w (H, P, d)`` over the (H, P) dims."""
+    return matmul(y, w, contract=2)
+
+
+def _local_ssd(fn, x, dt, A, B, C, D, state):
+    """``fn(x, dt, A, B, C, D, state) -> (y, state)`` (the chunked SSD or
+    one decode step) of DTensors, run on each rank's local block: the
+    recurrence is independent across batch rows, heads and head dims.
+    x is ``(b, [s,] h, p)``, dt ``(b, [s,] h)``, B and C ``(b, [s,] n)``,
+    A and D ``(h,)``, the state ``(b, h, p, n)`` or None.  Per mesh dim,
+    x keeps a shard of its batch, heads or head dim (the others follow
+    it; an operand that sees only part of what it feeds gets a partial
+    sum for its gradient); any other shard (the sequence's) is
+    gathered.  Returns y (x's shape and placement) and the state."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh, rep = x.device_mesh, Replicate()
+    hd = x.ndim - 2
+    keys = ("x", "dt", "A", "bc", "state")
+    place = {k: [] for k in keys}
+    grad = {k: [] for k in keys}
+    for px in x.placements:
+        dim = px.dim if isinstance(px, Shard) else None
+        if dim == 0:                                      # batch rows
+            pl = dict(x=px, dt=px, A=rep, bc=px, state=px)
+            gr = dict(pl, A=Partial())
+        elif dim == hd:                                   # heads
+            pl = dict(x=px, dt=Shard(dt.ndim - 1), A=Shard(0), bc=rep,
+                      state=Shard(1))
+            gr = dict(pl, bc=Partial())
+        elif dim == hd + 1:                               # head dims
+            pl = dict(x=px, dt=rep, A=rep, bc=rep, state=Shard(2))
+            gr = dict(pl, dt=Partial(), A=Partial(), bc=Partial())
+        else:
+            pl = gr = dict.fromkeys(keys, rep)
+        for k in keys:
+            place[k].append(pl[k])
+            grad[k].append(gr[k])
+
+    def local(t, key):
+        if t is None:
+            return None
+        return replicate_like(t, x).redistribute(mesh, place[key]) \
+            .to_local(grad_placements=grad[key])
+
+    def placed(t, key, shape):
+        return DTensor.from_local(t.contiguous(), mesh, place[key],
+                                  run_check=False, shape=shape,
+                                  stride=torch.empty(shape, device="meta")
+                                  .stride())
+    y, final = fn(local(x, "x"), local(dt, "dt"), local(A, "A"),
+                  local(B, "bc"), local(C, "bc"), local(D, "A"),
+                  local(state, "state"))
+    return (placed(y, "x", tuple(x.shape)),
+            placed(final, "state", (x.shape[0], x.shape[hd],
+                                    x.shape[hd + 1], B.shape[-1])))
 
 
 def _causal_conv(seq: torch.Tensor, w: torch.Tensor, tail: torch.Tensor):
@@ -206,7 +202,12 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
     x: (b, s, h, p); dt: (b, s, h) (post-softplus); A: (h,) negative decay;
     B, C: (b, s, n); D: (h,) skip.  Returns (y (b, s, h, p), final state
-    (b, h, p, n)).  ``s`` must be a multiple of ``chunk``."""
+    (b, h, p, n)).  ``s`` must be a multiple of ``chunk``.  DTensors run
+    on each rank's local block (``_local_ssd``)."""
+    if is_dtensor(x):
+        return _local_ssd(
+            lambda *a: ssd_chunked(*a[:6], chunk=chunk, init_state=a[6]),
+            x, dt, A, B, C, D, init_state)
     b, s, h, p = x.shape
     n = B.shape[-1]
     if s % chunk:
@@ -269,8 +270,8 @@ def mamba2_forward(params: Params, hidden: torch.Tensor, *, d_model: int,
     z = shard(_proj(hidden, params, "w_z"),                # (b,s,h,p)
               "batch", None, None, "ssm_inner")
     x = shard(_proj(hidden, params, "w_x"), "batch", None, None, "ssm_inner")
-    # B, C and dt replicated past the batch: DTensor may shard dt's
-    # heads, which then split the SSD's (H, P) products unevenly
+    # B, C and dt replicated past the batch: the causal conv runs along
+    # the whole sequence, and every head's SSD reads all of B and C
     Bp = shard(_proj(hidden, params, "w_b"), "batch", None, None)   # (b,s,n)
     Cp = shard(_proj(hidden, params, "w_c"), "batch", None, None)
     dt = shard(_proj(hidden, params, "w_dt"), "batch", None, None)  # (b,s,h)
@@ -308,6 +309,20 @@ def _conv_step(tail: torch.Tensor, new: torch.Tensor, w: torch.Tensor):
     return silu(out)
 
 
+def _ssd_step(x, dt, A, B, C, D, state):
+    """One token of the SSD recurrence: x (b, h, p), dt (b, h), B and C
+    (b, n), the state (b, h, p, n) -> (y (b, h, p), the new state).
+    DTensors run on each rank's local block (``_local_ssd``)."""
+    if is_dtensor(x):
+        return _local_ssd(_ssd_step, x, dt, A, B, C, D, state)
+    dA = torch.exp(dt * A)                                 # (b,h)
+    xdt = x * dt[..., None]                                # (b,h,p)
+    new_state = state * dA[..., None, None] + xdt[..., None] * B[:, None,
+                                                                 None, :]
+    y = torch.einsum("bhpn,bn->bhp", new_state, C)
+    return y + x * D[:, None], new_state
+
+
 def mamba2_decode(params: Params, hidden: torch.Tensor, conv_state,
                   ssm_state: torch.Tensor, *, d_model: int, expand: int = 2,
                   head_p: int = 64, state: int = 128):
@@ -329,13 +344,9 @@ def mamba2_decode(params: Params, hidden: torch.Tensor, conv_state,
 
     dt_s = F.softplus(dt.float() + params["dt_bias"])      # (b,h)
     A = -torch.exp(params["A_log"])
-    dA = torch.exp(dt_s * A)                               # (b,h)
-    xdt = x_c.float() * dt_s[..., None]                    # (b,h,p)
-    new_state = (ssm_state * dA[..., None, None]
-                 + xdt[..., None] * B_c[:, None, None, :])
+    y, new_state = _ssd_step(x_c.float(), dt_s, A, B_c, C_c, params["D"],
+                             ssm_state)
     set_at(ssm_state, (), new_state)
-    y = torch.einsum("bhpn,bn->bhp", new_state, C_c)
-    y = y + x_c.float() * params["D"][:, None]
     y = _gated_norm(y, z, params["norm"]).to(hidden.dtype)
     out = _out_proj(y, _w(params, "w_out", hidden))
     return out[:, None], conv_state, ssm_state

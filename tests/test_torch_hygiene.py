@@ -18,6 +18,9 @@ from repro_torch.engine import CoaxDevicePlan, DevicePlan
 from repro_torch.kernels import fused_scan
 
 SRC = str(Path(__file__).resolve().parents[1] / "src")
+EXAMPLES = Path(SRC).parent / "examples"
+TWINS = ("quickstart_torch", "batch_queries_torch", "coax_curation_torch",
+         "telemetry_torch", "serve_requests_torch", "train_lm_torch")
 
 
 def _modules():
@@ -59,6 +62,57 @@ def test_every_module_imports_without_jax_or_repro():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[] 0", out.stdout
+
+
+def test_example_twins_import_neither_jax_nor_repro():
+    """Every import statement of the six ``examples/*_torch.py`` (those
+    inside functions too) names neither JAX nor the JAX package, and
+    importing each twin loads neither."""
+    import ast
+    for name in TWINS:
+        tree = ast.parse((EXAMPLES / f"{name}.py").read_text())
+        roots = {a.name.split(".")[0] for n in ast.walk(tree)
+                 if isinstance(n, ast.Import) for a in n.names}
+        roots |= {n.module.split(".")[0] for n in ast.walk(tree)
+                  if isinstance(n, ast.ImportFrom) and n.module}
+        assert "repro_torch" in roots, name
+        assert not roots & {"jax", "jaxlib", "repro"}, (name, roots)
+    code = textwrap.dedent(f"""
+        import importlib.util, sys
+        for name in {TWINS!r}:
+            spec = importlib.util.spec_from_file_location(
+                name, {str(EXAMPLES)!r} + "/" + name + ".py")
+            spec.loader.exec_module(importlib.util.module_from_spec(spec))
+        print(sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "repro")))
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+@pytest.mark.parametrize("name,entry", [
+    ("quickstart_torch", "main"), ("batch_queries_torch", "main"),
+    ("coax_curation_torch", "main"), ("telemetry_torch", "main"),
+    ("serve_requests_torch", "main"), ("serve_requests_torch", "main_durable"),
+    ("serve_requests_torch", "main_failover"), ("train_lm_torch", "main")])
+def test_example_twins_raise_without_a_card(name, entry, tmp_path):
+    """Each twin, asked for ``cuda`` (its default) with no card, raises
+    before it builds, writes or trains anything."""
+    _no_card()
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(name,
+                                                  EXAMPLES / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    kw = {"ckpt_dir": str(tmp_path / "ck")} if name == "train_lm_torch" \
+        else {}
+    with pytest.raises(RuntimeError, match="no card"):
+        getattr(mod, entry)(**kw)
+    with pytest.raises(RuntimeError, match="no card"):
+        getattr(mod, entry)("cuda", **kw)
+    assert not (tmp_path / "ck").exists()
 
 
 def test_build_without_nvcc_raises_and_writes_nothing(monkeypatch, tmp_path):
@@ -139,7 +193,8 @@ def test_chip_smoke_rehearsal_and_no_card_exit():
     assert "[main]" in reh.stdout and "[segments]" in reh.stdout
     assert "[ops]" in reh.stdout and "[background]" in reh.stdout
     for phase in ("[cache]", "[sharded]", "[durable]", "[replicated]",
-                  "[lm_serve]", "[lm_steps]", "[lm_train]", "[mesh]"):
+                  "[lm_serve]", "[lm_steps]", "[lm_train]", "[mesh]",
+                  "[examples]"):
         assert phase in reh.stdout, phase
     assert "pinned epoch" in reh.stdout
     assert '"ok"' not in reh.stdout
