@@ -24,18 +24,23 @@ Phases, one line of output each:
             attention blocks) and minicpm3-4b (31 of its 62 MLA layers)
             at full width, cut for the run's time limit, and
             mixtral-8x7b at full width and 8 of its 32 layers (11.74B;
-            the full depth does not fit one card), with bfloat16
+            the full depth does not fit one card), gemma2-27b at full
+            width and 28 of its 46 layers (14 local/global pairs; the
+            float32 masters of more do not fit beside the serving
+            state), minitron-4b at full width and depth (4.31B) and
+            phi3.5-moe-42b-a6.6b at full width and 8 of its 32 layers
+            (10.53B), with bfloat16
             weights, behind a Server whose COAX router runs on the device
-            backend; 512 requests (288 for zamba2 and minicpm3) drawn as
-            launch/serve.py draws them,
-            drained in waves of 8; every admission equal to a
+            backend; 512 requests (288 for all but h2o and mixtral)
+            drawn as launch/serve.py draws them, drained in waves of 8; every admission equal to a
             numpy-backend twin router, one plan dispatch per admission on
             a built index, fused_scan launches counted around the drain;
             the first wave's logits against one forward (replayed at
-            float32 activations, mixtral's at a capacity that drops no
-            pair; as served, at bfloat16, for h2o), a reduced-depth
+            float32 activations, an MoE's at a capacity that drops no
+            pair; as served, at bfloat16, where that holds the bfloat16
+            bar), a reduced-depth
             full-width prefill against the CPU (zamba2 at 12 layers, both
-            shared blocks; mixtral at float32, its top-2 choices
+            shared blocks; an MoE at float32, its top-2 choices
             compared); prefill and decode ms against their bounds,
             tokens/s, admission latency, a torch.profiler breakdown; each
             model is freed (checked) before the next;
@@ -48,8 +53,12 @@ Phases, one line of output each:
             float32 activations against one forward, a 2-layer (2 + 2)
             full-width prefill against the CPU;
   lm_train  curation through fused_scan, h2o-danube-3-4b trained at full
-            width and depth, 2-layer full-width train steps card vs CPU
-            (h2o and mamba2-130m), and the training launcher at its
+            width and depth, mixtral-8x7b (2 of its 32 layers),
+            qwen2-vl-2b and seamless-m4t-large-v2 (full depth) trained
+            at full width on the curated docs with seeded stub patches
+            and frames, 2-layer full-width train steps card vs CPU
+            (h2o, mamba2-130m and those three), and the training
+            launcher at its
             defaults (mamba2-130m, full size, --curate) to step 20,
             resumed to 30, served from its checkpoint (the phase's
             function says more);
@@ -1990,32 +1999,47 @@ def fmt_lat(lat_s):
             f"{pct(lat_s, 99):.2f} ms, max {max(lat_s) * 1e3:.2f} ms)")
 
 
-# the lm_serve phase: the serve launcher's default arch, the hybrid and the
-# MLA arch, each at full width and depth, the launcher's traffic at 512
-# requests (the router builds its index only once 256 are pending), and the
-# bfloat16 bar of the reference's own prefill/forward test
+# the lm_serve phase: the serve launcher's default arch and the other archs
+# at full width, the launcher's traffic at 512 requests (the router builds
+# its index only once 256 are pending), and the bfloat16 bar of the
+# reference's own prefill/forward test
 LM_ARCH, LM_SEED, LM_REQUESTS = "h2o-danube-3-4b", 0, 512
 # the rehearsal's requests: enough for the router to build its index (256
 # pending), fewer waves of the CPU's slow bfloat16 products
 LM_REHEARSE_REQUESTS = 288
-LM_SERVE_ARCHS = (LM_ARCH, "zamba2-2.7b", "minicpm3-4b", "mixtral-8x7b")
-# the two slowest host-bound decoders serve 288 requests (still past the
-# router's 256-pending index build): on a slow host their 384 took 75.6 and
-# 101.5 s of a 1,062.7 s smoke on an H100 80GB HBM3 at 700 W (PERF.md §4)
-LM_SERVE_REQUESTS = {"zamba2-2.7b": 288, "minicpm3-4b": 288}
+LM_SERVE_ARCHS = (LM_ARCH, "zamba2-2.7b", "minicpm3-4b", "mixtral-8x7b",
+                  "gemma2-27b", "minitron-4b", "phi3.5-moe-42b-a6.6b")
+# all but h2o and mixtral serve 288 requests (still past the router's
+# 256-pending index build): on a slow host zamba2's and minicpm3's 384 took
+# 75.6 and 101.5 s of a 1,062.7 s smoke on an H100 80GB HBM3 at 700 W
+# (PERF.md §4)
+LM_SERVE_REQUESTS = {arch: 288 for arch in LM_SERVE_ARCHS[1:]
+                     if arch != "mixtral-8x7b"}
 # archs served at a cut depth on one card: mixtral-8x7b's 32 layers hold
 # 46.57B parameters, 93.1 GB of bfloat16 weights, past the card's 80 GB;
 # 8 layers at full width hold 23.5 GB, and their float32 masters (47.0
 # GB, alive while they are initialised and cast) fit, where 16 layers'
-# (94 GB) would not.  zamba2-2.7b and minicpm3-4b, the two slowest
-# host-bound decoders, serve at about half their depth (zamba2 five of its
-# nine segments of 6 Mamba2 layers, both shared blocks still run) so the
-# smoke keeps its margin under its time limit: at full depth and 288
-# requests a slow host took 90.7 and 103.0 s of a 1,119.5 s run on an
-# H100 80GB HBM3 at 700 W (PERF.md §4)
-SERVE_DEPTH = {"mixtral-8x7b": 8, "zamba2-2.7b": 30, "minicpm3-4b": 31}
+# (94 GB) would not.  phi3.5-moe's 32 layers hold 41.74B (83.5 GB of
+# bfloat16); 8 layers hold 10.53B, 42.1 GB of float32 masters at init.
+# gemma2-27b's 46 layers hold 27.23B (54.5 GB of bfloat16, 108.9 GB of
+# masters); while their masters were initialised and cast, 18 layers
+# peaked at 46.76 GiB and 26 at 63.67 GiB on an H100 80GB HBM3 (PERF.md
+# §4), 2.11 GiB a layer: 28 layers (17.03B) reach ~67.9 GiB and leave
+# ~11.3 of the card's 79.2 GiB free, where 30 would leave ~7.1; the depth
+# stays even, whole local/global pairs.
+# zamba2-2.7b and minicpm3-4b, the two slowest host-bound decoders, serve
+# at about half their depth (zamba2 five of its nine segments of 6 Mamba2
+# layers, both shared blocks still run) so the smoke keeps its margin
+# under its time limit: at full depth and 288 requests a slow host took
+# 90.7 and 103.0 s of a 1,119.5 s run on an H100 80GB HBM3 at 700 W
+# (PERF.md §4)
+SERVE_DEPTH = {"mixtral-8x7b": 8, "zamba2-2.7b": 30, "minicpm3-4b": 31,
+               "gemma2-27b": 28, "phi3.5-moe-42b-a6.6b": 8}
 # why each arch of SERVE_DEPTH is cut
-DEPTH_CUT = {"mixtral-8x7b": "the full depth's weights do not fit one card",
+FITS = "the full depth's weights do not fit one card"
+DEPTH_CUT = {"mixtral-8x7b": FITS, "phi3.5-moe-42b-a6.6b": FITS,
+             "gemma2-27b": "the float32 masters of more layers do not fit "
+                           "one card beside the serving state",
              "zamba2-2.7b": "the smoke's time limit",
              "minicpm3-4b": "the smoke's time limit"}
 LM_SERVE = dict(batch_size=8, max_new_tokens=16, cache_len=512, eos_token=0)
@@ -2028,9 +2052,11 @@ PROFILED_STEPS = 4            # decode steps of the first wave profiled
 F32_TOL = dict(rtol=1e-4, atol=2e-4)
 # archs whose bfloat16 first wave holds the bfloat16 bar against the
 # forward: over zamba2's 63 blocks and minicpm3's 62 layers bfloat16
-# rounding compounds past it, in the reference too (PERF.md §6), and
-# their wave is held at float32 alone
-BF16_WAVE_GATED = (LM_ARCH,)
+# rounding compounds past it, in the reference too (PERF.md §6), as over
+# gemma2's (0.1326 at 28 layers), and in an MoE a bfloat16 near-tie flips
+# a top-2 choice (2.75 and 2.88 for mixtral and phi3.5-moe on an H100
+# 80GB HBM3, PERF.md §6); their wave is held at float32 alone
+BF16_WAVE_GATED = (LM_ARCH, "minitron-4b")
 BF16_OPS_PER_S = 989e12       # H100 SXM bfloat16 dense (NVIDIA data sheet)
 CONV_K = 4                    # Mamba2's causal-conv taps (models/ssm.py)
 
@@ -2190,15 +2216,40 @@ def describe(cfg):
             f"{cfg.n_heads}/{cfg.n_kv_heads} x {cfg.hd}, window {cfg.window}")
 
 
-def train_bound_ms(n_params, tokens):
+def train_bound_ms(model, b, s, n_stub=0):
     """(step bound ms, its model-FLOP ms, its optimizer ms) of one train
-    step over ``tokens`` tokens: the useful work 6·N·T at the bfloat16
-    peak (remat's second forward is not counted), then AdamW, which reads
-    p, g, mu and nu and writes p, mu and nu (7 float32 words, 28 bytes a
-    parameter) at the memory rate; the two run one after the other."""
-    flop_ms = 6 * n_params * tokens / BF16_OPS_PER_S * 1e3
+    step of ``model`` (built anywhere, ``meta`` too) over ``b`` sequences
+    of ``s`` text tokens: the useful work 6·N·T at the bfloat16 peak
+    (remat's second forward is not counted), then AdamW over every
+    parameter, which reads p, g, mu and nu and writes p, mu and nu (7
+    float32 words, 28 bytes a parameter) at the memory rate; the two run
+    one after the other.  N·T is each parameter times the positions it
+    meets: an MoE's active parameters (``top_k`` of its experts) the text
+    tokens, the vlm's parameters the patches and the text, the enc-dec's
+    encoder the ``n_stub`` frames and its decoder (the embedding with it)
+    the text (``bound_terms`` says which)."""
+    cfg = model.cfg
+    n_params = model.param_count()
+    if cfg.family == "encdec":
+        n_enc = sum(p.numel() for n, p in model.named_parameters()
+                    if n.startswith("enc_"))
+        weighted = n_enc * b * n_stub + (n_params - n_enc) * b * s
+    elif cfg.family == "vlm":
+        weighted = n_params * b * (cfg.n_patches + s)
+    else:
+        weighted = model.active_param_count() * b * s
+    flop_ms = 6 * weighted / BF16_OPS_PER_S * 1e3
     opt_ms = 28 * n_params / HBM_BYTES_PER_S * 1e3
     return flop_ms + opt_ms, flop_ms, opt_ms
+
+
+def bound_terms(cfg):
+    """How ``train_bound_ms`` counts ``cfg``'s model FLOPs."""
+    if cfg.family == "encdec":
+        return "6(N_enc·T_frames + N_dec·T_text)"
+    if cfg.family == "vlm":
+        return "6N(T_patches + T_text)"
+    return "6·N_active·T" if cfg.n_experts else "6NT"
 
 
 def lm_bound_ms(ops, nbytes):
@@ -2210,7 +2261,11 @@ def lm_bound_ms(ops, nbytes):
 def lm_profile(torch, fn, reps):
     """``reps`` calls of ``fn`` under torch.profiler: (wall ms a call,
     device-busy ms a call, kernel launches a call, the three kernels with
-    the most device time); None when the trace has no device time."""
+    the most device time); None when the trace has no device time.  The
+    device events are read from the raw trace: ``key_averages`` first
+    builds an event tree over the CPU ops too, which took 36 s for one
+    44,000-kernel qwen2-vl-2b train step on an H100 80GB HBM3 (PERF.md
+    §4)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
@@ -2220,31 +2275,33 @@ def lm_profile(torch, fn, reps):
             fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = []
-    for evt in prof.key_averages():
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = getattr(evt, "self_cuda_time_total", 0.0)
-        if us > 0 and str(getattr(evt, "device_type", "")).endswith("CUDA"):
-            kernels.append((us, evt.count, evt.key))
-    busy = sum(k[0] for k in kernels)
+    by_name = {}                        # kernel name -> [ns, launches]
+    for evt in prof.profiler.kineto_results.events():
+        if (not str(evt.device_type()).endswith("CUDA")
+                or evt.is_user_annotation() or evt.duration_ns() <= 0):
+            continue
+        acc = by_name.setdefault(evt.name(), [0, 0])
+        acc[0] += evt.duration_ns()
+        acc[1] += 1
+    busy = sum(ns for ns, _ in by_name.values())
     if busy <= 0:
         return None
-    top = ", ".join(f"{k[2][:40]} {k[0] / 1e3 / reps:.3f} ms"
-                    for k in sorted(kernels, reverse=True)[:3])
-    return (wall * 1e3 / reps, busy / 1e3 / reps,
-            sum(k[1] for k in kernels) / reps, top)
+    top = ", ".join(f"{name[:40]} {ns / 1e6 / reps:.3f} ms"
+                    for name, (ns, _) in sorted(
+                        by_name.items(), key=lambda kv: -kv[1][0])[:3])
+    return (wall * 1e3 / reps, busy / 1e6 / reps,
+            sum(n for _, n in by_name.values()) / reps, top)
 
 
 def lm_serve_phase(torch, dev, card_line, arch=LM_ARCH):
     """The LM serving path on the card for ``arch``: ``build_model`` at
-    full width and depth (``SERVE_DEPTH`` cuts mixtral's, zamba2's and
-    minicpm3's; 2 layers at
+    full width and depth (``SERVE_DEPTH`` cuts the MoEs', gemma2's,
+    zamba2's and minicpm3's; 2 layers at
     width 64 in the rehearsal, a hybrid one segment of 6, SSD and latent
     dims cut), float32 masters from a seeded generator cast once to
     bfloat16, a ``Server`` whose router runs on the device backend, 512
-    requests (288 in the rehearsal) drawn as ``launch/serve.py`` draws
-    them, drained.  Checks: every request answered once with its budget
+    requests (288 for the archs of ``LM_SERVE_REQUESTS`` and in the
+    rehearsal) drawn as ``launch/serve.py`` draws them, drained.  Checks: every request answered once with its budget
     of tokens; every admission equal to a numpy-backend twin router fed
     the same submissions; fused_scan launches around the drain > 0 and
     one plan dispatch per admission that met a built index; the first
@@ -2422,6 +2479,7 @@ def lm_serve_phase(torch, dev, card_line, arch=LM_ARCH):
         f"forward| by step: bfloat16 "
         f"{', '.join(f'{e:.4f}' for e in step_errs)}; float32 replay"
         f"{replay} {', '.join(f'{e:.2e}' for e in f32_errs)}")
+    bf16_holds = bool(np.allclose(got.numpy(), want.numpy(), **LM_TOL))
     if arch in BF16_WAVE_GATED:
         np.testing.assert_allclose(got.numpy(), want.numpy(), **LM_TOL)
     np.testing.assert_allclose(f32_got.numpy(), f32_want.numpy(), **F32_TOL)
@@ -2513,7 +2571,8 @@ def lm_serve_phase(torch, dev, card_line, arch=LM_ARCH):
         f"at float32 (max_abs_err {f32_err:.2e}, rtol 1e-4 / atol 2e-4), "
         f"at bfloat16 max_abs_err {wave_err:.4f} ("
         f"{'held' if arch in BF16_WAVE_GATED else 'not held'} at the "
-        f"bfloat16 bar); {two}; phase {time.perf_counter() - t_phase:.1f} s")
+        f"bfloat16 bar, {'inside' if bf16_holds else 'outside'} it); {two}; "
+        f"phase {time.perf_counter() - t_phase:.1f} s")
     return dict(launches=launches, admits=admits[0],
                 indexed=len(waves_per_admit))
 
@@ -2835,6 +2894,10 @@ def lm_steps_phase(torch, dev, card_line, arch):
 # its curation query, batch 8 x seq 256, lr 1e-3), 8 steps at full width
 # and depth; the card-vs-CPU twin's batch; the launchers' round trip
 LM_TRAIN = dict(docs=50_000, batch=8, seq=256, steps=8, lr=1e-3)
+# the rehearsal's batch: a CPU step over 8 x 256 tokens at width 64 takes
+# ~1 s (the softmax over the vocabulary), and the rehearsal trains five
+# models and the launcher
+LM_TRAIN_REHEARSE = dict(batch=2, seq=64)
 # the training launcher's default arch (src/repro/launch/train.py:45)
 LAUNCH_ARCH = "mamba2-130m"
 # the twin's AdamW eps: the first update g / (|g| + eps) multiplies a
@@ -2845,6 +2908,105 @@ LAUNCH_ARCH = "mamba2-130m"
 TWIN_BATCH, TWIN_EPS = 2, 1e-3
 TWIN_TOL = {"float32": (dict(rtol=1e-4, atol=0.0), dict(rtol=0.0, atol=1e-5)),
             "bfloat16": (LM_TOL, dict(rtol=0.0, atol=LM_TOL["atol"]))}
+# the MoE, the vlm and the enc-dec trained at full width beside h2o, on the
+# same curated docs and batch (8 x 256 tokens), for NEW_TRAIN_STEPS steps
+# (4, not 6, for the smoke's time limit: PERF.md §4)
+LM_TRAIN_ARCHS = ("mixtral-8x7b", "qwen2-vl-2b", "seamless-m4t-large-v2")
+NEW_TRAIN_STEPS = 4
+# archs trained at a cut depth: mixtral-8x7b's tied embeddings and 2 of its
+# 32 layers hold 3.03B parameters, 48.5 GB of training state at 16 bytes a
+# parameter (float32 masters, gradients, mu, nu); 3 layers' 4.48B (71.8 GB)
+# leave no room for the activations on an 80 GB card
+TRAIN_DEPTH = {"mixtral-8x7b": 2}
+TRAIN_DEPTH_CUT = {"mixtral-8x7b": "the training state of 3 layers, 71.8 GB "
+                                   "at 16 bytes a parameter, leaves no room "
+                                   "on one card"}
+# the enc-dec's stub frames a sequence (the vlm's patches are its config's
+# n_patches, 1,024), as lm_steps feeds them
+TRAIN_FRAMES = 1024
+# the twins also run at bfloat16 activations where the smoke's time limit
+# allows: the CPU's bfloat16 steps of qwen2-vl-2b and seamless-m4t-large-v2
+# took 21.8 and 16.8 s (both inside the bar), mixtral's would take minutes
+# (PERF.md §4); tests/test_torch_cuda.py runs the first two on the card
+BF16_TWINS = (LM_ARCH, LAUNCH_ARCH)
+
+
+def train_config(arch, cuda, layers=None):
+    """``arch``'s config as ``lm_train`` runs it: at full width, ``layers``
+    deep (default ``TRAIN_DEPTH``'s, else the config's; the enc-dec's
+    encoder as deep as its decoder); in the rehearsal 2 layers at width 64
+    (the vlm's heads of 16 split by M-RoPE as in ``lm_steps``).  The vlm
+    runs at the attention chunk that divides its patches + the loader's
+    text (the chunked attention takes a multiple of its chunk: 128 of
+    1,024 + 256 on the card)."""
+    import dataclasses
+    import math
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import reduced
+    cfg = get_config(arch)
+    layers = layers or TRAIN_DEPTH.get(arch)
+    if not cuda:
+        cfg = reduced(cfg, 2, 64)
+        if cfg.family == "vlm":
+            cfg = dataclasses.replace(cfg, head_dim=16,
+                                      mrope_sections=(2, 3, 3))
+    elif layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers,
+                                  enc_layers=layers if cfg.enc_layers else 0)
+    if cfg.family == "vlm":
+        cfg = dataclasses.replace(cfg, attn_chunk=math.gcd(
+            VLM_CHUNK, cfg.n_patches + train_size(cuda)[1]))
+    return cfg
+
+
+def train_size(cuda):
+    """(batch, text tokens a sequence) of the lm_train phase's runs."""
+    size = LM_TRAIN if cuda else LM_TRAIN_REHEARSE
+    return size["batch"], size["seq"]
+
+
+def stub_len(cfg, cuda):
+    """Stub positions a sequence of ``cfg``'s batches carries beside its
+    text: the vlm's patches, the enc-dec's frames (16 in the rehearsal),
+    else 0."""
+    if cfg.family == "vlm":
+        return cfg.n_patches
+    if cfg.family == "encdec":
+        return TRAIN_FRAMES if cuda else 16
+    return 0
+
+
+def batch_label(cfg, b, s, n_stub):
+    """"b x s", or with ``n_stub`` stub positions "b x (n stub patches +
+    s tokens)" (frames for the enc-dec)."""
+    if not n_stub:
+        return f"{b} x {s}"
+    kind = "patches" if cfg.family == "vlm" else "frames"
+    return f"{b} x ({n_stub} stub {kind} + {s} tokens)"
+
+
+def with_stubs(torch, batches, model, n_stub, seed):
+    """Each batch of ``batches`` (the loader's ``tokens`` and ``labels``)
+    with the stub inputs ``model``'s family reads beside them: the vlm's
+    ``patches`` (its ``n_patches``), the enc-dec's ``frames`` (``n_stub``
+    a sequence), standard normal draws of a CPU generator seeded with
+    ``seed``, in the shape and dtype ``Model.input_specs`` gives a train
+    cell (the enc-dec's at ``n_stub`` positions); other families' batches
+    pass as they are."""
+    from repro_torch.configs.base import ShapeConfig
+    cfg = model.cfg
+    gen = torch.Generator().manual_seed(seed)
+    for batch in batches:
+        if cfg.family not in ("vlm", "encdec"):
+            yield batch
+            continue
+        b, s = batch["tokens"].shape
+        seq = cfg.n_patches + s if cfg.family == "vlm" else n_stub
+        specs = model.input_specs(ShapeConfig("stubs", seq, b, "train"),
+                                  device="meta")
+        stubs = {k: torch.randn(v.shape, generator=gen).to(v.dtype)
+                 for k, v in specs.items() if k in ("patches", "frames")}
+        yield {**stubs, **batch}
 
 
 def lm_train_phase(torch, dev, card_line):
@@ -2861,12 +3023,21 @@ def lm_train_phase(torch, dev, card_line):
        grad norms > 0, every parameter moved; step ms, tokens/s, the
        bound (``train_bound_ms``), the model-FLOP share, AdamW ms (CUDA
        events), peak memory against the state reckoning, and one more
-       step under torch.profiler (the card's busy share).
-    3. One train step of a 2-layer full-width model (h2o-danube-3-4b and
-       the launcher's default, mamba2-130m) on the card and on the CPU
+       step under torch.profiler (the card's busy share).  Then the same
+       for 4 steps (``NEW_TRAIN_STEPS``) of mixtral-8x7b at 2 of its 32
+       layers (``TRAIN_DEPTH``; capacity factor 1.25), qwen2-vl-2b and
+       seamless-m4t-large-v2 at full width and depth, the vlm's and the
+       enc-dec's batches carrying seeded stub patches / frames
+       (``with_stubs``); every expert of every MoE layer, and each
+       router column, must see a gradient.
+    3. One train step of a 2-layer (the enc-dec 2 + 2) full-width model
+       (h2o-danube-3-4b, the launcher's default mamba2-130m, and the
+       three above; the MoE at a capacity that drops no pair, its routing
+       choices on the two devices compared) on the card and on the CPU
        from the same weights and batch (AdamW eps ``TWIN_EPS``): float32
        activations within rtol 1e-4 (loss, grad norm) / atol 1e-5
-       (parameters), bfloat16 within rtol 0.05 / atol 0.08.
+       (parameters), bfloat16 (``BF16_TWINS``) within rtol 0.05 / atol
+       0.08.
     4. The launchers at their defaults (``launchers``): mamba2-130m at
        full size trained with ``--curate`` to step 20 (checkpoints every
        10 under ``build/train_smoke``), again to 30 (resumes at 20), then
@@ -2875,20 +3046,17 @@ def lm_train_phase(torch, dev, card_line):
        save and restore seconds; the directory is removed even on
        failure.
 
-    The rehearsal runs the same at 2 layers and width 64 on the CPU."""
-    import dataclasses
-    from repro_torch.configs import get_config
+    The rehearsal runs the same at 2 layers and width 64 on the CPU, over
+    ``LM_TRAIN_REHEARSE``'s batches of 2 x 64 tokens."""
     from repro_torch.data.curation import CuratedSelector, MetaQuery
     from repro_torch.data.pipeline import ShardedLoader, make_corpus
     from repro_torch.kernels import fused_scan
-    from repro_torch.launch.train import reduced
+    from repro_torch.models import build_model
 
     t_phase = time.perf_counter()
     cuda = dev != "cpu"
-    cfg = get_config(LM_ARCH)
-    if not cuda:
-        cfg = reduced(cfg, 2, 64)
-    s = LM_TRAIN["seq"]
+    cfg = train_config(LM_ARCH, cuda)
+    s = train_size(cuda)[1]
 
     # ---- 1. curation on the card ----
     corpus = make_corpus(LM_TRAIN["docs"],
@@ -2915,45 +3083,67 @@ def lm_train_phase(torch, dev, card_line):
         f"select {select_ms:.3f} ms, fused_scan launches {cur_launches}")
     del sel, twin
 
-    # ---- 2. full width and depth ----
-    trained = train_full(torch, dev, cfg, corpus, docs, card_line)
-    say("lm_train", trained)
-    if cuda:
-        release_lm(torch, "lm_train")
+    # ---- 2. full width: h2o at full depth, the MoE, vlm and enc-dec ----
+    for arch in (LM_ARCH,) + LM_TRAIN_ARCHS:
+        steps = LM_TRAIN["steps"] if arch == LM_ARCH else NEW_TRAIN_STEPS
+        say("lm_train", train_full(torch, dev, train_config(arch, cuda),
+                                   corpus, docs, card_line, steps))
+        if cuda:
+            release_lm(torch, "lm_train")
 
     # ---- 3. card against the CPU, 2 layers at full width ----
     loader = ShardedLoader(corpus, batch_size=TWIN_BATCH, seq_len=s,
                            doc_ids=docs, seed=1)
-    batch = next(iter(loader))
+    tokens = next(iter(loader))
     loader.close()
-    for arch in (LM_ARCH, LAUNCH_ARCH):
-        cfg2 = get_config(arch)
-        cfg2 = (dataclasses.replace(cfg2, n_layers=2) if cuda
-                else reduced(cfg2, 2, 64))
+    for arch in (LM_ARCH, LAUNCH_ARCH) + LM_TRAIN_ARCHS:
+        t_twin = time.perf_counter()
+        cfg2 = no_drop(train_config(arch, cuda, layers=2))
         errs, weights = [], twin_weights(torch, cfg2, dev)
+        batch = next(with_stubs(torch, iter([tokens]),
+                                build_model(cfg2, device="meta"),
+                                stub_len(cfg2, cuda), LM_SEED))
         for dtype in ("float32", "bfloat16"):
-            got, p_got = train_twin(torch, cfg2, batch, dev, dtype, weights)
-            want, p_want = train_twin(torch, cfg2, batch, "cpu", dtype,
-                                      weights)
+            if dtype == "bfloat16" and arch not in BF16_TWINS:
+                errs.append("bfloat16: not run (the smoke's time limit)")
+                continue
+            routes = {} if cfg2.n_experts else None
+            with moe_routes(routes):
+                if routes is not None:
+                    routes["at"] = "card"
+                t0 = time.perf_counter()
+                got, p_got = train_twin(torch, cfg2, batch, dev, dtype,
+                                        weights)
+                if routes is not None:
+                    routes["at"] = "cpu"
+                t1 = time.perf_counter()
+                want, p_want = train_twin(torch, cfg2, batch, "cpu", dtype,
+                                          weights)
+                t2 = time.perf_counter()
             tol, ptol = TWIN_TOL[dtype]
             for k in want:
                 np.testing.assert_allclose(got[k], want[k],
                                            err_msg=f"{arch} {k}", **tol)
-            err = 0.0
-            for n in p_want:
-                np.testing.assert_allclose(p_got[n].numpy(),
-                                           p_want[n].numpy(),
-                                           err_msg=f"{arch} {n}", **ptol)
-                err = max(err, float((p_got[n] - p_want[n]).abs().max()))
+            err = params_close(torch, p_got, p_want, ptol, arch)
+            secs = (f"{t1 - t0:.1f} s on the card, {t2 - t1:.1f} s on the "
+                    f"CPU, {time.perf_counter() - t2:.1f} s to compare")
+            diff = (f", top-{cfg2.top_k} expert sets differ for "
+                    f"{route_diffs(torch, routes)}" if routes else "")
             errs.append(f"{dtype}: loss {got['loss']:.6f} vs "
                         f"{want['loss']:.6f}, grad norm "
                         f"{got['grad_norm']:.6f} vs {want['grad_norm']:.6f}, "
-                        f"parameters max_abs_err {err:.3g}")
+                        f"parameters max_abs_err {err:.3g}{diff} ({secs})")
             del p_got, p_want
-        del weights
-        say("lm_train", f"{arch}: 2-layer train step at d_model "
-            f"{cfg2.d_model} ({TWIN_BATCH} x {s}, AdamW eps {TWIN_EPS}), "
-            f"{dev} vs CPU: {'; '.join(errs)}")
+        del weights, batch
+        inputs = batch_label(cfg2, TWIN_BATCH, s, stub_len(cfg2, cuda))
+        layers = (f"{cfg2.n_layers} + {cfg2.enc_layers}-layer"
+                  if cfg2.enc_layers else f"{cfg2.n_layers}-layer")
+        moe = (f", capacity factor {cfg2.capacity_factor:g} (no pair "
+               f"dropped)" if cfg2.n_experts else "")
+        say("lm_train", f"{arch}: {layers} train step at d_model "
+            f"{cfg2.d_model} ({inputs}, AdamW eps {TWIN_EPS}{moe}), {dev} vs "
+            f"CPU ({torch.get_num_threads()} threads): {'; '.join(errs)}; "
+            f"{time.perf_counter() - t_twin:.1f} s")
 
     # ---- 4. the launchers: train, resume, serve ----
     launchers(torch, dev, cuda, card_line)
@@ -2970,10 +3160,33 @@ def twin_weights(torch, cfg, dev):
     return {k: v.cpu() for k, v in model.state_dict().items()}
 
 
+def params_close(torch, got, want, tol, what):
+    """Each parameter of ``got`` (on its device) against ``want``'s (on
+    the CPU) as ``np.testing.assert_allclose`` holds them, |got - want|
+    <= atol + rtol·|want| element by element (a NaN or an inf fails),
+    computed on ``got``'s device (numpy's check over a full-width MoE's
+    billions of values takes minutes on the host); returns the largest
+    |got - want|."""
+    err = 0.0
+    for n, w in want.items():
+        g = got[n]
+        w = w.to(g.device)
+        diff = (g - w).abs()
+        bad = ~(diff <= tol["atol"] + tol["rtol"] * w.abs())
+        if bool(bad.any()):
+            raise AssertionError(
+                f"{what} {n}: {int(bad.sum())} of {g.numel()} values beyond "
+                f"rtol {tol['rtol']} / atol {tol['atol']} (max |diff| "
+                f"{float(diff.max()):.3g})")
+        err = max(err, float(diff.max()))
+    return err
+
+
 def train_twin(torch, cfg, batch, dev, dtype, weights):
     """One ``make_train_step`` step of ``cfg`` on ``dev`` at activation
     dtype ``dtype``, from ``weights`` (``twin_weights``): (loss and grad
-    norm as floats, the updated parameters on the CPU)."""
+    norm as floats, the updated parameters, on ``dev``: a full-width
+    MoE's are too large to copy to the host beside the CPU's step)."""
     from repro_torch.models import build_model
     from repro_torch.optim import AdamWConfig, adamw_init
     from repro_torch.runtime.steps import make_train_step
@@ -2984,76 +3197,91 @@ def train_twin(torch, cfg, batch, dev, dtype, weights):
         m = make_train_step(model, AdamWConfig(lr=LM_TRAIN["lr"],
                                                eps=TWIN_EPS))(state, batch)
         out = {k: float(m[k]) for k in ("loss", "grad_norm")}
-        params = {n: p.detach().cpu() for n, p in model.named_parameters()}
+        params = {n: p.detach() for n, p in model.named_parameters()}
     return out, params
 
 
-def train_full(torch, dev, cfg, corpus, docs, card_line):
-    """``train()`` for 8 steps at ``cfg``'s full width and depth; returns
-    the line to print.  The model, the AdamW state and the loader are
-    gone when it returns."""
+def train_full(torch, dev, cfg, corpus, docs, card_line, n_steps):
+    """``train()`` for ``n_steps`` steps of ``cfg`` at its width and depth
+    (the vlm's and the enc-dec's batches with their stubs); returns the
+    line to print.  The model, the AdamW state and the loader are gone
+    when it returns."""
     import repro_torch.runtime.steps as steps
+    from repro_torch.configs import get_config
     from repro_torch.data.pipeline import ShardedLoader
     from repro_torch.models import build_model
     from repro_torch.optim import AdamWConfig
     from repro_torch.runtime.train_loop import TrainLoopConfig, train
+    t_run = time.perf_counter()
     cuda = dev != "cpu"
-    b, s = LM_TRAIN["batch"], LM_TRAIN["seq"]
+    b, s = train_size(cuda)
+    n_stub = stub_len(cfg, cuda)
     model = build_model(cfg, device=dev)
     n_params = model.param_count()
     state_gib = 16 * n_params / 2**30          # masters, grads, mu, nu
-    samples = {}
+    samples, seen = {}, {}
     init = model.init
 
     def init_and_sample(generator):             # train() inits the model
         init(generator)
         for n, p in model.named_parameters():
-            samples[n] = p.detach().flatten()[:4096].clone()
+            samples[n] = expert_rows(cfg, n, p).clone()
         return model
     model.init = init_and_sample
 
     opt_events, update = [], steps.adamw_update
 
-    def timed_update(*a, **k):
+    def timed_update(params, grads, *a, **k):
+        for n, g in grads.items():          # which experts saw a gradient
+            got = grad_seen(torch, cfg, n, g)
+            seen[n] = got if n not in seen else seen[n] | got
         if not cuda:
-            return update(*a, **k)
+            return update(params, grads, *a, **k)
         e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         e0.record()
-        out = update(*a, **k)
+        out = update(params, grads, *a, **k)
         e1.record()
         opt_events.append((e0, e1))
         return out
     loader = ShardedLoader(corpus, batch_size=b, seq_len=s, doc_ids=docs)
-    it = iter(loader)
+    it = with_stubs(torch, iter(loader), model, n_stub, LM_SEED)
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     steps.adamw_update = timed_update
     logs = []
+    t_train = time.perf_counter()
     try:
         out = train(model, it, AdamWConfig(lr=LM_TRAIN["lr"]),
-                    TrainLoopConfig(steps=LM_TRAIN["steps"], ckpt_dir=None,
+                    TrainLoopConfig(steps=n_steps, ckpt_dir=None,
                                     log_every=1), log_fn=logs.append)
     finally:
         steps.adamw_update = update
     sync(torch, dev)
+    train_s = time.perf_counter() - t_train
     peak = torch.cuda.max_memory_allocated() if cuda else 0
     hist = out["history"]
     losses = [h["loss"] for h in hist]
     norms = [h["grad_norm"] for h in hist]
-    if (len(hist) != LM_TRAIN["steps"] or out["restarts"]
+    if (len(hist) != n_steps or out["restarts"]
             or not np.isfinite(losses + norms).all() or min(norms) <= 0):
         raise AssertionError(f"training went wrong: {logs}")
     still = [n for n, p in model.named_parameters()
-             if torch.equal(p.detach().flatten()[:4096], samples[n])]
+             if (expert_rows(cfg, n, p) == samples[n]).all(-1).any()]
     if still:
-        raise AssertionError(f"parameters that did not move: {still[:5]}")
+        raise AssertionError(f"parameters (or experts) that did not move: "
+                             f"{still[:5]}")
+    blind = [n for n, v in seen.items() if not bool(v.all())]
+    if blind:
+        raise AssertionError(f"parameters (or experts, or router columns) "
+                             f"that never saw a gradient: {blind[:5]}")
     step_ms = [h["dt"] * 1e3 for h in hist[1:]]
     p50 = float(np.median(step_ms))
     opt_ms = [e0.elapsed_time(e1) for e0, e1 in opt_events]
     tokens = b * s
-    bound, flop_ms, adam_ms = train_bound_ms(n_params, tokens)
+    bound, flop_ms, adam_ms = train_bound_ms(model, b, s, n_stub)
 
     prof = "not measured (no card)"
+    t_prof = time.perf_counter()
     if cuda:
         step_fn = steps.make_train_step(model, AdamWConfig(lr=LM_TRAIN["lr"]))
         batch = next(it)
@@ -3062,31 +3290,72 @@ def train_full(torch, dev, cfg, corpus, docs, card_line):
                 f"({100 * p[1] / p[0]:.1f}%), {p[2]:.0f} kernels; top: {p[3]}"
                 if p else "no device time in the trace")
         del step_fn, batch
+    prof_s = time.perf_counter() - t_prof
     loader.close()
-    del out, model, samples, it
-    return (f"{cfg.name} ({cfg.n_layers} layers, "
-            f"d_model {cfg.d_model}, {n_params:,} parameters, float32 "
-            f"masters, remat {cfg.remat!r}), {LM_TRAIN['steps']} steps of "
-            f"{b} x {s} on the curated docs: loss {losses[0]:.4f} -> "
-            f"{losses[-1]:.4f}, grad norm {norms[0]:.4f} -> {norms[-1]:.4f}, "
-            f"every parameter moved; step p50 {p50:.1f} ms, max "
+    del out, model, samples, seen, it
+    full = get_config(cfg.name).n_layers
+    cut = (f" of {full}, {TRAIN_DEPTH_CUT[cfg.name]}"
+           if cuda and cfg.n_layers != full else "")
+    shape = f"{cfg.n_layers} layers{cut}"
+    if cfg.enc_layers:
+        shape += f" + {cfg.enc_layers} encoder layers"
+    if cfg.n_experts:
+        shape += (f", {cfg.n_experts} experts top-{cfg.top_k} at capacity "
+                  f"factor {cfg.capacity_factor:g}")
+    inputs = batch_label(cfg, b, s, n_stub)
+    if cfg.family == "vlm":
+        shape += f", attention chunk {cfg.attn_chunk}"
+    return (f"{cfg.name} ({shape}, d_model {cfg.d_model}, {n_params:,} "
+            f"parameters, float32 masters, remat {cfg.remat!r}), {n_steps} "
+            f"steps of {inputs} on the curated docs: loss {losses[0]:.4f} "
+            f"-> {losses[-1]:.4f}, grad norm {norms[0]:.4f} -> "
+            f"{norms[-1]:.4f}, every parameter moved and saw a gradient"
+            f"{' (each expert and router column too)' if cfg.n_experts else ''}"
+            f"; step p50 {p50:.1f} ms, max "
             f"{max(step_ms):.1f} ms (steps 1-{len(hist) - 1}; the first "
-            f"{hist[0]['dt'] * 1e3:.1f} ms); {tokens / p50 * 1e3:.0f} "
-            f"tokens/s; bound {bound:.1f} ms (6NT {flop_ms:.1f} ms at "
-            f"989 TFLOP/s + AdamW {adam_ms:.1f} ms at 3.35 TB/s), "
-            f"model-FLOP share {100 * flop_ms / p50:.1f}%; AdamW update "
+            f"{hist[0]['dt'] * 1e3:.1f} ms); {tokens / p50 * 1e3:.0f} text "
+            f"tokens/s; bound {bound:.1f} ms ({bound_terms(cfg)} "
+            f"{flop_ms:.1f} ms at 989 TFLOP/s + AdamW {adam_ms:.1f} ms at "
+            f"3.35 TB/s), model-FLOP share {100 * flop_ms / p50:.1f}%; AdamW "
+            f"update "
             + (f"p50 {np.median(opt_ms):.1f} ms, max {max(opt_ms):.1f} ms "
                f"(CUDA events)" if opt_ms else "not measured (no card)")
             + f"; peak device memory {peak / 2**30:.2f} GiB against the "
             f"state's {state_gib:.2f} GiB (16 bytes a parameter); one step "
-            f"profiled: {prof} ({card_line})")
+            f"profiled: {prof}; train() {train_s:.1f} s, the profiled step "
+            f"{prof_s:.1f} s, {time.perf_counter() - t_run:.1f} s in all "
+            f"({card_line})")
+
+
+def expert_rows(cfg, name, p):
+    """The first 4,096 values of parameter ``p`` as one row, or, for an
+    MoE expert stack (E, ., .), the first 4,096 of each expert's matrix, a
+    row an expert (detached)."""
+    leaf = name.rsplit(".", 1)[-1]
+    if cfg.n_experts and leaf in ("w_in", "w_gate", "w_out") and p.ndim == 3:
+        return p.detach().flatten(1)[:, :4096]
+    return p.detach().flatten()[None, :4096]
+
+
+def grad_seen(torch, cfg, name, g):
+    """Whether gradient ``g`` of parameter ``name`` is non-zero anywhere:
+    one flag, or for an MoE one an expert (each expert's matrix of an
+    expert stack, each router column)."""
+    leaf = name.rsplit(".", 1)[-1]
+    inf = float("inf")
+    if cfg.n_experts and leaf in ("w_in", "w_gate", "w_out") and g.ndim == 3:
+        return torch.linalg.vector_norm(g.flatten(1), inf, dim=1) > 0
+    if cfg.n_experts and leaf == "router":
+        return torch.linalg.vector_norm(g, inf, dim=0) > 0
+    return torch.linalg.vector_norm(g, inf) > 0
 
 
 def launchers(torch, dev, cuda, card_line):
     """The training launcher at its defaults (mamba2-130m, full size, 8 x
     256, lr 1e-3, ``--curate``) to step 20, resumed to 30, then the
     serving launcher restoring step 30 from the same directory at full
-    size (2 layers at width 64 in the rehearsal).  Checkpoint saves (the
+    size (2 layers at width 64 and ``LM_TRAIN_REHEARSE``'s batch in the
+    rehearsal).  Checkpoint saves (the
     device-to-host copy, then the npz write on the saver's thread) and
     restores are timed by wrapping ``Checkpointer``'s methods."""
     from repro_torch.launch import serve as serve_launch
@@ -3097,8 +3366,10 @@ def launchers(torch, dev, cuda, card_line):
     size = (["--reduced-layers", "0"] if cuda
             else ["--reduced-layers", "2", "--reduced-width", "64"])
     common = ["--arch", LAUNCH_ARCH, "--device", dev]
+    b, s = train_size(cuda)
     args = common + ["--curate", "--ckpt-every", "10", "--ckpt-dir",
-                     str(directory)] + ([] if cuda else size)
+                     str(directory)] + ([] if cuda else size + [
+                         "--batch", str(b), "--seq", str(s)])
     timings = {"_host_flat": [], "_write": [], "restore": []}
     methods = {name: Checkpointer.__dict__[name] for name in timings}
 
@@ -3161,7 +3432,7 @@ def launchers(torch, dev, cuda, card_line):
     step_ms = [h["dt"] * 1e3 for run in (first, second)
                for h in run["history"][1:]]
     p50 = float(np.median(step_ms))
-    tokens = LM_TRAIN["batch"] * LM_TRAIN["seq"]      # the launcher's
+    tokens = b * s                                    # the launcher's
 
     def secs(xs):
         return ", ".join(f"{x:.2f}" for x in xs) or "none"
@@ -3352,7 +3623,7 @@ def mesh_phase(torch, dev, card_line):
                                 samples[n])]
         if still:
             raise AssertionError(f"parameters that did not move: {still[:5]}")
-        bound, _, _ = train_bound_ms(n_params, b * s)
+        bound, _, _ = train_bound_ms(model, b, s)
         say("mesh", f"{cfg.name} ({cfg.n_layers} layers, d_model "
             f"{cfg.d_model}, {n_params:,} parameters) on a 1x1 mesh "
             f"({'NCCL' if cuda else 'gloo'}, one rank): {len(plain)} plain "
@@ -3642,8 +3913,8 @@ def dryrun_phase(torch, dev, card_line, dry):
     if c.flops != fake_flops:
         raise AssertionError(f"the dry run counts {fake_flops:.6e} FLOPs on "
                              f"fake tensors, {c.flops:.6e} on the card")
-    n_params = build_model(cfg, device="meta").param_count()
-    bound, _, _ = train_bound_ms(n_params, size["batch"] * size["seq"])
+    bound, _, _ = train_bound_ms(build_model(cfg, device="meta"),
+                                 size["batch"], size["seq"])
     r = fake["roofline"]
     total = torch.cuda.get_device_properties(0).total_memory if cuda else 0
     say("dryrun", f"{cfg.name} train step ({size['batch']} x {size['seq']},"

@@ -915,26 +915,48 @@ def _train_twin(cfg, batch, dev, seed=0):
     return out, {n: p.detach().cpu() for n, p in model.named_parameters()}
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch,dtype", [
+    ("h2o-danube-3-4b", "float32"), ("h2o-danube-3-4b", "bfloat16"),
+    ("mixtral-8x7b", "float32"),
+    ("qwen2-vl-2b", "float32"), ("qwen2-vl-2b", "bfloat16"),
+    ("seamless-m4t-large-v2", "float32"),
+    ("seamless-m4t-large-v2", "bfloat16")])
 def test_two_layer_full_width_train_step_on_cuda_matches_the_cpu(
-        cuda, monkeypatch, dtype):
-    """h2o-danube-3-4b cut to 2 layers, full width (d_model 3840, vocab
-    32,000): one train step (loss, backward through remat, AdamW) from the
-    same weights and batch on the card and on the CPU.  float32
-    activations: loss and grad norm within rtol 1e-4, updated parameters
-    within atol 1e-5; bfloat16 (the shipped dtype): rtol 0.05 /
-    atol 0.08.  AdamW's eps is 1e-3: the first update g / (|g| + eps)
-    multiplies a gradient difference by up to 1 / (4 eps), so at the
-    default 1e-8 the two devices' float32 GEMM orders move a few of the
-    122,880,000 embedding entries by ~1e-4."""
+        cuda, monkeypatch, arch, dtype):
+    """``arch`` cut to 2 layers (the enc-dec 2 + 2), full width: one
+    train step (loss, backward through remat, AdamW) from the same weights
+    and batch on the card and on the CPU.  h2o-danube-3-4b (d_model 3840,
+    vocab 32,000); mixtral-8x7b at a capacity factor that drops no pair
+    (4: every expert takes every token of a row), at float32 only (its
+    bfloat16 step over 2.8B expert weights is slow on the host);
+    qwen2-vl-2b with 1,024 stub patches (attention chunk 128, which
+    divides 1,024 + 256); seamless-m4t-large-v2 with 1,024 stub frames.
+    float32 activations: loss and grad norm within rtol 1e-4, updated
+    parameters within atol 1e-5; bfloat16 (the shipped dtype): rtol
+    0.05 / atol 0.08.  AdamW's eps is 1e-3: the first update
+    g / (|g| + eps) multiplies a gradient difference by up to 1 / (4 eps),
+    so at the default 1e-8 the two devices' float32 GEMM orders move a
+    few of the 122,880,000 embedding entries by ~1e-4."""
     import dataclasses
     import repro_torch.models.common as p_common
     from repro_torch.configs import get_config
     monkeypatch.setattr(p_common, "DTYPE", getattr(torch, dtype))
-    cfg = dataclasses.replace(get_config("h2o-danube-3-4b"), n_layers=2)
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, n_layers=2,
+                              enc_layers=2 if cfg.enc_layers else 0)
+    if cfg.n_experts:
+        cfg = dataclasses.replace(
+            cfg, capacity_factor=cfg.n_experts / cfg.top_k)
     rng = np.random.default_rng(23)
-    toks = rng.integers(0, cfg.vocab_size, (2, 257)).astype(np.int32)
+    toks = rng.integers(0, 32_000, (2, 257)).astype(np.int32)
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.family == "vlm":
+        cfg = dataclasses.replace(cfg, attn_chunk=128)
+        batch["patches"] = rng.normal(
+            0, 1, (2, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    if cfg.family == "encdec":
+        batch["frames"] = rng.normal(
+            0, 1, (2, 1024, cfg.d_model)).astype(np.float32)
     got, p_got = _train_twin(cfg, batch, "cuda")
     want, p_want = _train_twin(cfg, batch, "cpu")
     tol = (dict(rtol=1e-4, atol=0) if dtype == "float32"

@@ -197,6 +197,19 @@ def test_chip_smoke_rehearsal_and_no_card_exit():
                   "[examples]"):
         assert phase in reh.stdout, phase
     assert "pinned epoch" in reh.stdout
+    lines = reh.stdout.splitlines()
+    for phase, archs in (
+            ("[lm_serve]", ("gemma2-27b", "minitron-4b",
+                            "phi3.5-moe-42b-a6.6b")),
+            ("[lm_train]", ("mixtral-8x7b", "qwen2-vl-2b",
+                            "seamless-m4t-large-v2"))):
+        for arch in archs:
+            mine = [l for l in lines if l.startswith(f"{phase} {arch}")]
+            if phase == "[lm_serve]":
+                assert any(": checks passed:" in l for l in mine), arch
+            else:           # its train() run, then its card-vs-CPU twin
+                assert any("every parameter moved" in l for l in mine), arch
+                assert any("train step at d_model" in l for l in mine), arch
     assert '"ok"' not in reh.stdout
     if torch.cuda.is_available():
         return

@@ -20,7 +20,9 @@ jitted steps trace after the patch).  Bars:
 Histories compared across an injected failure use ``async_ckpt=False``:
 the reference's restore does not wait for an in-flight save.
 """
+import importlib.util
 import shutil
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -31,6 +33,7 @@ torch = pytest.importorskip("torch")
 
 import repro.models.attention as r_attn
 import repro.models.common as r_common
+import repro.models.encdec as r_ed
 import repro.models.model as r_model
 import repro.models.transformer as r_tf
 from conftest import make_batch, tiny_config
@@ -64,7 +67,7 @@ ARCH = "h2o-danube-3-4b"
 @pytest.fixture
 def f32(monkeypatch):
     """Both packages at float32 activations."""
-    for mod in (r_common, r_attn, r_tf, r_model):
+    for mod in (r_common, r_attn, r_tf, r_model, r_ed):
         monkeypatch.setattr(mod, "DTYPE", jnp.float32)
     monkeypatch.setattr(p_common, "DTYPE", torch.float32)
 
@@ -260,18 +263,29 @@ def test_train_step_matches_reference(f32, microbatches, transform):
     assert all(p.grad is None for p in port.parameters())
 
 
-@pytest.mark.parametrize("arch", NEW)
+# the MoE, vlm and enc-dec families and the dense archs the card serves
+# since they were added to the smoke, held at the same bars
+CARD = ["mixtral-8x7b", "phi3.5-moe-42b-a6.6b", "qwen2-vl-2b",
+        "seamless-m4t-large-v2", "gemma2-27b", "minitron-4b"]
+
+
+@pytest.mark.parametrize("arch", NEW + CARD)
 def test_train_step_of_the_new_families_matches_reference(f32, arch):
     """One jitted reference step against one port step (AdamW eps 1e-3,
-    see above) for the ssm, hybrid and MLA archs: loss, grad norm,
-    parameters, ``mu`` and ``nu``."""
+    see above) for the ssm, hybrid and MLA archs, the MoEs (tiny: 4
+    experts, top-2, capacity factor 8), the vlm (4 stub patches), the
+    enc-dec (16 stub frames) and the two dense archs new to the card:
+    loss, grad norm, parameters, ``mu`` and ``nu``.  The stubs reach the
+    reference as ``make_batch`` gives them (bfloat16) and the port as the
+    same values in float32; each package casts them to float32."""
     cfg, ref, params, port = _twins(arch)
-    batch = _np_batch(make_batch(cfg, batch=2, seq=16, seed=9))
+    r_batch = make_batch(cfg, batch=2, seq=16, seed=9)
+    batch = {k: np.array(v.astype(jnp.float32) if v.dtype == jnp.bfloat16
+                         else v) for k, v in r_batch.items()}
     r_step = jax.jit(r_make_train_step(ref, RefAdamWConfig(lr=1e-3,
                                                            eps=1e-3)))
     r_state = r_adamw_init(params)
-    r_params, r_state, r_m = r_step(params, r_state,
-                                    {k: jnp.asarray(v) for k, v in batch.items()})
+    r_params, r_state, r_m = r_step(params, r_state, r_batch)
     state = adamw_init(port)
     m = make_train_step(port, AdamWConfig(lr=1e-3, eps=1e-3))(state, batch)
     np.testing.assert_allclose(float(m["loss"]), float(r_m["loss"]), **GRAD)
@@ -280,6 +294,103 @@ def test_train_step_of_the_new_families_matches_reference(f32, arch):
     _assert_trees(reference_tree(port), r_params, GRAD, "params")
     _assert_trees(reference_tree(state["mu"]), r_state["mu"], GRAD, "mu")
     _assert_trees(reference_tree(state["nu"]), r_state["nu"], GRAD, "nu")
+
+
+def _smoke():
+    """``chip_smoke.py`` loaded as a module (it imports no torch or
+    package code until a phase runs)."""
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def _specs(tree):
+    """{key: (shape, dtype name)} of a batch or of ``input_specs``."""
+    return {k: (tuple(v.shape), str(v.dtype).replace("torch.", ""))
+            for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("arch", ["qwen2-vl-2b", "seamless-m4t-large-v2",
+                                  "mixtral-8x7b"])
+def test_smoke_stub_batches_are_seeded_and_shaped_as_the_reference_specs(
+        arch):
+    """``chip_smoke.with_stubs`` adds the vlm's patches and the enc-dec's
+    frames to the loader's batches: the same seed gives the same batches,
+    another seed other stubs, each batch fresh draws; keys, shapes and
+    dtypes are the reference's ``Model.input_specs`` of a train cell (the
+    enc-dec's frames at their own length); an MoE's batches pass as they
+    are."""
+    from repro.configs.base import ShapeConfig as RefShape
+    smoke = _smoke()
+    cfg = tiny_config(get_config(arch))
+    port = build_model(cfg, device="meta")
+    rng = np.random.default_rng(0)
+    b, s = 2, 12
+    loader = []
+    for _ in range(2):
+        toks = rng.integers(0, 200, (b, s + 1)).astype(np.int32)
+        loader.append({"tokens": toks[:, :-1], "labels": toks[:, 1:]})
+    for n_stub in (s, 20):
+        runs = [list(smoke.with_stubs(torch, iter(loader), port, n_stub,
+                                      seed)) for seed in (3, 3, 4)]
+        stubs = [k for k in runs[0][0] if k not in ("tokens", "labels")]
+        assert stubs == {"vlm": ["patches"], "encdec": ["frames"]}.get(
+            cfg.family, [])
+        for got, again, other, src in zip(*runs, loader):
+            assert got.keys() == again.keys() == other.keys()
+            for k in ("tokens", "labels"):
+                assert got[k] is src[k]
+            for k in stubs:
+                assert torch.equal(got[k], again[k])
+                assert not torch.equal(got[k], other[k])
+        for k in stubs:
+            assert not torch.equal(runs[0][0][k], runs[0][1][k])
+        seq = cfg.n_patches + s if cfg.family == "vlm" else s
+        want = _specs(r_build(cfg).input_specs(RefShape("t", seq, b,
+                                                        "train")))
+        got = _specs(runs[0][0])
+        if cfg.family == "encdec":
+            shape, dt = want["frames"]
+            want["frames"] = ((b, n_stub, shape[2]), dt)
+        assert got == want, (n_stub, got, want)
+
+
+@pytest.mark.parametrize("arch", ["h2o-danube-3-4b", "mixtral-8x7b",
+                                  "phi3.5-moe-42b-a6.6b", "qwen2-vl-2b",
+                                  "seamless-m4t-large-v2"])
+def test_smoke_train_bound_counts_the_work_of_each_family(arch):
+    """``chip_smoke.train_bound_ms`` at full size (the port's model on
+    ``meta``, the reference's counts from its parameter shapes): the
+    model-FLOP term is 6 x the parameters x the positions they meet (an
+    MoE's active parameters the text tokens, the vlm's parameters the
+    patches and the text, the enc-dec's encoder the frames and the rest
+    the text), over the bfloat16 peak; AdamW's term reads and writes 28
+    bytes of every parameter at the memory rate; the bound is their
+    sum."""
+    smoke = _smoke()
+    cfg = get_config(arch)
+    ref = r_build(cfg)
+    b, s, frames = 8, 256, 1024
+    n = ref.param_count()
+    if cfg.family == "encdec":
+        shapes = jax.eval_shape(lambda k: ref.init(k)[0], jax.random.key(0))
+        n_enc = sum(int(np.prod(x.shape)) for key in ("enc_layers",
+                                                      "enc_norm")
+                    for x in jax.tree.leaves(shapes[key]))
+        assert 0 < n_enc < n
+        work = n_enc * b * frames + (n - n_enc) * b * s
+    elif cfg.family == "vlm":
+        work = n * b * (cfg.n_patches + s)
+    else:
+        work = ref.active_param_count() * b * s
+        assert (work < n * b * s) == bool(cfg.n_experts)
+    bound, flop_ms, opt_ms = smoke.train_bound_ms(
+        build_model(cfg, device="meta"), b, s, frames)
+    assert flop_ms == pytest.approx(6 * work / 989e12 * 1e3, rel=1e-12)
+    assert opt_ms == pytest.approx(28 * n / 3.35e12 * 1e3, rel=1e-12)
+    assert bound == pytest.approx(flop_ms + opt_ms, rel=1e-12)
 
 
 def test_a_step_that_raises_changes_nothing():
